@@ -1,0 +1,48 @@
+"""State carried across from the JAX engine or the host oracle to the port.
+
+The tests use these so that SpiralServerJax and SpiralServerTorch serve one
+identical DB with one key set. Every function returns CPU tensors; move them
+to a device with ``.to(device)`` (SpiralServerTorch.set_db does).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sdk_tpu.params import Params
+
+from .ops.spiral import LIMB_BITS, NUM_LIMBS, db_limbs
+
+
+def db_from_jax_planes(params: Params, planes) -> torch.Tensor:
+    """The JAX engine's latency-layout limb planes (server_jax.py:84-88: a
+    tuple of crt*NUM_LIMBS int8 arrays (z, inst, trials, num_per, dim0),
+    plane c*NUM_LIMBS + k = limb k of channel c) -> the port's dense DB."""
+    limbs = np.stack([np.asarray(p) for p in planes]).astype(np.int64)
+    limbs = limbs.reshape((params.crt_count, NUM_LIMBS) + limbs.shape[1:])
+    vals = sum(limbs[:, k] << (LIMB_BITS * k) for k in range(NUM_LIMBS))
+    return db_limbs(params, torch.from_numpy(vals))
+
+
+def db_from_host_tensor(params: Params, db_u64: np.ndarray) -> torch.Tensor:
+    """server_host.build_db_tensor output (inst, trials, z, crt, num_per,
+    dim0) uint64 residues -> the port's dense DB (limbs split on the host)."""
+    vals = np.ascontiguousarray(db_u64.transpose(3, 2, 0, 1, 4, 5))
+    if vals.max(initial=0) >> (LIMB_BITS * NUM_LIMBS):
+        raise ValueError("DB residues must be < 2^28")
+    return db_limbs(params, torch.from_numpy(vals.astype(np.int64)))
+
+
+def pp_from_jax(pp_dev: dict) -> dict:
+    """JAX pp_to_device dict of (w, w_shoup) uint32 arrays -> the port's
+    dict of (w, w_shoup) int32 tensors holding the same bit patterns."""
+    def keyed(pair):
+        return tuple(torch.from_numpy(np.array(x, dtype=np.uint32)
+                                      .view(np.int32)) for x in pair)
+
+    out = {}
+    for key, val in pp_dev.items():
+        out[key] = [keyed(p) for p in val] if isinstance(val, list) \
+            else keyed(val)
+    return out

@@ -1,0 +1,224 @@
+"""Spiral server engine on PyTorch: device state and the query pipeline.
+
+Ports sdk_tpu/ops/server_jax.py (dense, single-device). Every stage of a
+read runs on the engine's device: expansion -> first-dim scan -> fold ->
+pack -> encode; only the wire words come back to the host. Reference
+pipeline: lib/server/src/server.rs:17-99, lib/spiral-rs/src/server.rs
+:650-741.
+
+Not ported yet (each raises NotImplementedError; see ROADMAP.md Queue 1):
+sharded serving (a mesh), the compact index, compacted sparse expansion,
+direct-upload queries and the CLIENT_TEST mid-pipeline decryption hook.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sdk_tpu import poly as hpoly
+from sdk_tpu.client import PublicParameters, Query
+from sdk_tpu.debug_hooks import client_test_active
+from sdk_tpu.params import Params
+from sdk_tpu.telemetry import GLOBAL_TIMERS
+
+from ..convert import db_from_host_tensor
+from . import spiral as sj
+from .encode import ResponseEncodePlan
+from .modops import shoup_companion_arr, u32_bits
+
+_NOT_PORTED = "not ported to sdk_tpu_torch yet (ROADMAP.md, Queue 1)"
+
+
+def db_tensor_to_device(params: Params, db_host: np.ndarray,
+                        device) -> torch.Tensor:
+    """Host DB tensor (inst, trials, poly_len, crt, num_per, dim0) uint64
+    (server_host.build_db_tensor) -> the dense int8 limb DB on ``device``.
+    The limbs are split on the host, so the device holds only the int8
+    index."""
+    return db_from_host_tensor(params, db_host).to(device)
+
+
+def db_zeros_device(params: Params, device) -> torch.Tensor:
+    """Empty dense DB (see spiral.db_shape)."""
+    return torch.zeros(sj.db_shape(params), dtype=torch.int8, device=device)
+
+
+def index_hbm_bytes(params: Params) -> int:
+    """Device bytes of the dense encrypted index: crt * NUM_LIMBS int8
+    entries per coefficient of every item (the JAX engine's count)."""
+    return int(np.prod(sj.db_shape(params), dtype=np.int64))
+
+
+def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
+    """Estimated device bytes next to the index while an nq-query batch is
+    in flight: the scan's query and output columns, every query's folding
+    keys, and one query's expansion and fold temporaries (the per-query
+    stages run one query at a time). The fold's round-0 digits dominate:
+    (trials*instances*num_per/2) x 2*2*t_gsw polys as int64 digits, int32
+    NTT residues and int64 products."""
+    crt, z = params.crt_count, params.poly_len
+    dim0 = 1 << params.db_dim_1
+    num_per = 1 << params.db_dim_2
+    m = params.instances * params.n * params.n * num_per
+    scan = crt * z * (m + dim0) * 2 * nq * 4
+    keys = nq * params.db_dim_2 * 2 * 2 * params.t_gsw * crt * z * 4 * 2
+    expand = (1 << params.g()) * 2 * crt * z * 4 * 8
+    fold = (m // 2) * 4 * params.t_gsw * z * (8 + crt * 4 + crt * 8)
+    return scan + keys + expand + fold
+
+
+def pp_to_device(params: Params, pp: PublicParameters, device) -> dict:
+    """Public-parameter matrices as int32 device tensors, each paired with
+    its Shoup companions (session-fixed key material)."""
+    def keyed(m: np.ndarray):
+        return (u32_bits(m, device),
+                u32_bits(shoup_companion_arr(params, m), device))
+
+    out = {"v_packing": [keyed(m) for m in pp.v_packing]}
+    if params.expand_queries:
+        out["v_exp_left"] = [keyed(m) for m in pp.v_expansion_left]
+        right = pp.v_expansion_right or pp.v_expansion_left
+        out["v_exp_right"] = [keyed(m) for m in right]
+        out["v_conversion"] = keyed(pp.v_conversion[0])
+    return out
+
+
+class SpiralServerTorch:
+    """Device-resident Spiral server for one parameter set on one device."""
+
+    def __init__(self, params: Params, device, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"sharded serving is {_NOT_PORTED}")
+        if not params.expand_queries:
+            raise NotImplementedError(f"direct-upload queries are {_NOT_PORTED}")
+        self.params = params
+        self.device = torch.device(device)
+        self.plan = sj.ExpansionPlan(params, self.device)
+        g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
+        self.gadget_ntt = u32_bits(g, self.device)
+        self.encode_plan = ResponseEncodePlan(params, self.device)
+        self.db: torch.Tensor | None = None
+
+    # -- state --
+
+    def set_db(self, db: torch.Tensor) -> None:
+        """Install a dense DB tensor (spiral.db_shape, int8)."""
+        if tuple(db.shape) != sj.db_shape(self.params) or db.dtype != torch.int8:
+            raise ValueError(f"bad DB tensor {db.dtype} {tuple(db.shape)}")
+        self.db = db.to(self.device)
+
+    def set_db_host_tensor(self, db_host: np.ndarray) -> None:
+        self.set_db(db_tensor_to_device(self.params, db_host, self.device))
+
+    def set_populated_dim0(self, populated) -> None:
+        raise NotImplementedError(f"sparse query expansion is {_NOT_PORTED}")
+
+    def _pp_dev(self, pp) -> dict:
+        return pp if isinstance(pp, dict) else pp_to_device(self.params, pp,
+                                                            self.device)
+
+    # -- stages --
+
+    def expand_query(self, pp_dev: dict, query: Query):
+        """Query ct -> (scan columns (crt, z, dim0, 2), folding keys
+        (db_dim_2, 2, 2*t_gsw, crt, z))."""
+        params = self.params
+        ct = torch.from_numpy(query.ct.astype(np.int64)).to(self.device)
+        ct0 = sj.to_ntt(params, ct)                       # (2, 1, crt, n)
+        right = params.t_gsw * params.db_dim_2
+        cts = sj.coefficient_expansion(params, self.plan, ct0,
+                                       pp_dev["v_exp_left"],
+                                       pp_dev["v_exp_right"], right)
+        dim0 = 1 << params.db_dim_1
+        if params.db_dim_2 > 0:
+            v_reg = cts[0::2][:dim0]
+            v_folding = sj.regev_to_gsw(params, cts[1::2][:right],
+                                        pp_dev["v_conversion"])
+        else:
+            v_reg = cts[:dim0]
+            v_folding = torch.zeros((0, 2, 2 * params.t_gsw, params.crt_count,
+                                     params.poly_len), dtype=torch.int32,
+                                    device=self.device)
+        q_arr = v_reg[:, :, 0].permute(2, 3, 0, 1).contiguous()
+        return q_arr, v_folding
+
+    def _fold(self, inter: torch.Tensor, v_folding: torch.Tensor):
+        """One query's scan columns (crt, z, inst, trials, num_per, 2) ->
+        folded raw cts (inst, trials, 2, 1, z)."""
+        params = self.params
+        crt, z, inst, trials, npr, _ = inter.shape
+        cts = inter.permute(2, 3, 4, 5, 0, 1).reshape(
+            inst * trials, npr, 2, 1, crt, z)
+        v_neg = sj.get_v_folding_neg(params, v_folding, self.gadget_ntt)
+        folded = sj.fold_ciphertexts(params, sj.from_ntt(params, cts),
+                                     v_folding, v_neg)
+        return folded.reshape(inst, trials, 2, 1, z)
+
+    def _pack_encode(self, folded: torch.Tensor, v_packing) -> torch.Tensor:
+        """Folded cts -> the wire response as int32 words on the device."""
+        params = self.params
+        packed = torch.stack([
+            sj.from_ntt(params, sj.pack(params, folded[i], v_packing))
+            for i in range(params.instances)])
+        return self.encode_plan.encode(packed)
+
+    def _dispatch_one(self, pp_dev: dict, query: Query) -> torch.Tensor:
+        q_arr, v_folding = self.expand_query(pp_dev, query)
+        inter = sj.firstdim_multiply(self.params, self.db, q_arr)
+        return self._pack_encode(self._fold(inter, v_folding),
+                                 pp_dev["v_packing"])
+
+    # -- host orchestration --
+
+    def _check_supported(self) -> None:
+        if client_test_active():
+            raise NotImplementedError(f"the CLIENT_TEST hook is {_NOT_PORTED}")
+        if self.db is None:
+            raise RuntimeError("no DB installed")
+
+    def process_query(self, pp, query: Query) -> bytes:
+        self._check_supported()
+        with GLOBAL_TIMERS.stage("query_fused"):
+            words = self._dispatch_one(self._pp_dev(pp), query)
+            return self.encode_plan.to_bytes(words)
+
+    def dispatch_queries_batched(self, requests: list):
+        """Two-phase batched serving: enqueue the whole batch on the
+        device's current stream and return a zero-arg fetch closure that
+        copies the response words to the host (waiting for the queued work)
+        and returns the response bytes.
+
+        The batch shares ONE scan with R = 2*NQ columns (column 2*i + r is
+        row r of query i); expansion, fold, pack and encode run per query.
+        NQ is padded to a power of two with copies of query 0's columns
+        (server_jax.py:644-648), so R always splits into the scan kernel's
+        column blocks; the fillers' columns are dropped after the scan."""
+        self._check_supported()
+        params = self.params
+        n_real = len(requests)
+        if n_real == 1:
+            pp, query = requests[0]
+            words = self._dispatch_one(self._pp_dev(pp), query)
+            return lambda: [self.encode_plan.to_bytes(words)]
+
+        pps = [self._pp_dev(pp) for pp, _ in requests]
+        expanded = [self.expand_query(pp, q) for pp, (_, q) in
+                    zip(pps, requests)]
+        cols = [q_arr for q_arr, _ in expanded]
+        pad_n = 1 << (n_real - 1).bit_length()
+        cols += [cols[0]] * (pad_n - n_real)
+        q_all = torch.stack(cols, dim=-2)                 # (crt, z, dim0, NQ, 2)
+        q_all = q_all.reshape(q_all.shape[:3] + (2 * pad_n,))
+        inter = sj.firstdim_multiply(params, self.db, q_all)
+        inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))
+        words = torch.stack([
+            self._pack_encode(self._fold(inter[..., i, :], v_folding),
+                              pps[i]["v_packing"])
+            for i, (_, v_folding) in enumerate(expanded)])
+
+        def fetch():
+            host = words.cpu().numpy()        # waits for the queued work
+            return [self.encode_plan.to_bytes(host[i]) for i in range(n_real)]
+
+        return fetch

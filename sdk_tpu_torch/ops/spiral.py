@@ -1,0 +1,459 @@
+"""Spiral server stages on PyTorch tensors (dense paths).
+
+Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
+
+  expansion : automorphism-based coefficient expansion + Regev->GSW
+  scan      : encrypted-query x DB product (kernel group C, csrc/scan.cu)
+  fold      : GSW external products over db_dim_2 rounds
+  pack      : recombine n*n scalar cts into one matrix ct (versions 0, 1)
+
+Representation (see modops): NTT matrices are int32 ``(rows, cols, crt, n)``
+residues; raw matrices are int64 ``(rows, cols, n)`` values mod Q. The dense
+DB is one int8 tensor of 7-bit limbs laid out for the scan kernel's loads:
+``(crt, z, L, dim0/4, instances, trials, num_per, 4)`` where the last axis
+holds columns 4*jw .. 4*jw+3 (see csrc/scan.cu). ``matmul_mod`` is kernel
+group B (csrc/matmul_mod.cu); the NTTs are kernel group A (ops/ntt.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sdk_tpu import poly as hpoly
+from sdk_tpu.params import Params
+
+from .. import _build
+from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
+                     reduce_channels, u32_bits)
+from .ntt import ntt_forward, ntt_inverse
+
+LIMB_BITS = 7
+NUM_LIMBS = 4  # 4 x 7 = 28 bits covers both CRT moduli (q < 2^28)
+_SCAN_CHUNK = 64  # plain scan: 64 products < 2^56 each keep an int64 sum exact
+
+
+# ---------------------------------------------------------------------------
+# domain conversions
+# ---------------------------------------------------------------------------
+
+def to_ntt(params: Params, raw: torch.Tensor) -> torch.Tensor:
+    """raw int64 (..., n) -> NTT int32 (..., crt, n)."""
+    return ntt_forward(params, reduce_channels(params, raw))
+
+
+def to_ntt_no_reduce(params: Params, digits: torch.Tensor) -> torch.Tensor:
+    """digits (..., n) (< 4q) -> NTT, copied into every channel unreduced
+    (reference poly.rs:625-638)."""
+    stacked = digits.to(torch.int32).unsqueeze(-2).expand(
+        digits.shape[:-1] + (params.crt_count, params.poly_len))
+    return ntt_forward(params, stacked.contiguous())
+
+
+def from_ntt(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """NTT int32 (..., crt, n) -> raw int64 (..., n), CRT-composed."""
+    return crt_compose(params, ntt_inverse(params, x))
+
+
+# ---------------------------------------------------------------------------
+# modular matmul over NTT-domain matrices: kernel group B
+# ---------------------------------------------------------------------------
+
+def _matmul_shapes(a: torch.Tensor, b: torch.Tensor):
+    batch = b.shape[:-4]
+    ab = a.ndim - 4
+    if a.shape[:ab] != batch[:ab] or a.shape[-3] != b.shape[-4]:
+        raise ValueError(f"matmul_mod shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    return batch, ab
+
+
+def matmul_mod_plain(params: Params, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """Exact int64 products summed over k (k * 2^56 < 2^63 for k < 128),
+    reduced once per channel."""
+    batch, ab = _matmul_shapes(a, b)
+    ra, k = a.shape[-4], a.shape[-3]
+    a_b = a.reshape(batch[:ab] + (1,) * (len(batch) - ab) + a.shape[-4:])
+    acc = None
+    for kk in range(k):
+        ak = a_b[..., :, kk:kk + 1, :, :].to(torch.int64)   # (.., ra, 1, crt, n)
+        bk = b[..., kk:kk + 1, :, :, :].to(torch.int64)     # (.., 1, cb, crt, n)
+        t = ak * bk
+        acc = t if acc is None else acc + t
+    q = moduli_column(params, b.device)
+    return (acc % q).to(torch.int32)
+
+
+def _matmul_launch(params: Params, a: torch.Tensor, a_shoup, b: torch.Tensor):
+    batch, ab = _matmul_shapes(a, b)
+    ra, k, cb = a.shape[-4], a.shape[-3], b.shape[-3]
+    if a.dtype != torch.int32 or b.dtype != torch.int32 or k > 256:
+        raise ValueError("matmul_mod kernel takes int32 operands and k <= 256")
+    a = a.contiguous()
+    b = b.contiguous()
+    tensors = [a, b] + ([a_shoup.contiguous()] if a_shoup is not None else [])
+    _build.require_cuda(*tensors)
+    nb = int(np.prod(batch, dtype=np.int64))
+    na = int(np.prod(a.shape[:ab], dtype=np.int64))
+    out = torch.empty(batch + (ra, cb, params.crt_count, params.poly_len),
+                      dtype=torch.int32, device=b.device)
+    q0, q1 = params.moduli
+    _build.launch("matmul_mod", "sdk_matmul_mod", b.device, a.data_ptr(),
+                  tensors[2].data_ptr() if a_shoup is not None else None,
+                  b.data_ptr(), out.data_ptr(), nb, nb // max(na, 1), ra, k,
+                  cb, params.poly_len, q0, q1, _build.stream_of(b))
+    return out
+
+
+def matmul_mod(params: Params, a, b: torch.Tensor) -> torch.Tensor:
+    """NTT-domain modular matmul.
+
+    a: int32 (*abatch, ra, k, crt, n), or a (w, w_shoup) pair of such tensors
+    for session key material with precomputed Shoup companions; abatch
+    aligns with the first dims of b's batch.
+    b: int32 (..., k, cb, crt, n). Returns int32 (..., ra, cb, crt, n) in
+    [0, q_c)."""
+    a_shoup = None
+    if isinstance(a, tuple):
+        a, a_shoup = a
+    if b.device.type == "cuda":
+        return _matmul_launch(params, a, a_shoup, b)
+    if b.device.type == "cpu":
+        return matmul_mod_plain(params, a, b)
+    raise ValueError(f"unsupported device {b.device}")
+
+
+def scalar_mulmod(params: Params, s: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """s: (crt, n) NTT scalar poly; b: (..., crt, n). Pointwise product."""
+    return mul_mod(params, s, b)
+
+
+# ---------------------------------------------------------------------------
+# raw-domain ops
+# ---------------------------------------------------------------------------
+
+def automorph_tables(params: Params, t: int):
+    """Gather permutation + negation mask for x -> x^t (reference
+    poly.rs:393-405 scatter, inverted into a gather)."""
+    n = params.poly_len
+    i = np.arange(n)
+    perm = np.zeros(n, dtype=np.int64)
+    neg = np.zeros(n, dtype=bool)
+    perm[(i * t) % n] = i
+    neg[(i * t) % n] = ((i * t) // n) % 2 == 1
+    return perm, neg
+
+
+def automorph_pair(params: Params, raw: torch.Tensor, perm: torch.Tensor,
+                   neg: torch.Tensor) -> torch.Tensor:
+    """Apply the automorphism to raw values; negation is Q - x (0 -> Q)."""
+    g = raw.index_select(-1, perm)
+    return torch.where(neg, neg_mod_Q(params, g), g)
+
+
+def _get_bits_per(params: Params, dim: int) -> int:
+    if dim == params.modulus_log2:
+        return 1
+    return int(params.modulus_log2 / dim) + 1
+
+
+def gadget_digits(params: Params, raw: torch.Tensor, out_rows: int,
+                  rdim: int) -> torch.Tensor:
+    """G^-1: decompose raw (..., rdim, cols, n) into (..., out_rows, cols, n)
+    base-2^bits_per digits (reference gadget.rs:34-60); out[k*rdim + r] is
+    digit k of row r. Digits at bit offsets >= 64 are zero."""
+    num_elems = out_rows // rdim
+    bits_per = _get_bits_per(params, num_elems)
+    mask = (1 << min(bits_per, 32)) - 1
+    pieces = []
+    for k in range(num_elems):
+        off = k * bits_per
+        if off >= 64:       # a shift by >= 64 is undefined in torch
+            pieces.append(torch.zeros_like(raw))
+        else:
+            pieces.append((raw >> off) & mask)
+    stacked = torch.stack(pieces, dim=-4)   # (..., num_elems, rdim, cols, n)
+    return stacked.reshape(stacked.shape[:-4] + (out_rows,)
+                           + stacked.shape[-2:])
+
+
+def invert_raw_pair(params: Params, raw: torch.Tensor) -> torch.Tensor:
+    """Q - x (0 -> Q, as reference invert_poly)."""
+    return neg_mod_Q(params, raw)
+
+
+# ---------------------------------------------------------------------------
+# first-dimension scan: kernel group C
+# ---------------------------------------------------------------------------
+
+def db_shape(params: Params) -> tuple:
+    """Shape of the dense int8 DB tensor (see the module docstring)."""
+    dim0 = 1 << params.db_dim_1
+    return (params.crt_count, params.poly_len, NUM_LIMBS, dim0 // 4,
+            params.instances, params.n * params.n, 1 << params.db_dim_2, 4)
+
+
+def db_limbs(params: Params, vals: torch.Tensor) -> torch.Tensor:
+    """Residues (crt, z, inst, trials, num_per, dim0) (< 2^28) -> the dense
+    int8 DB tensor (see db_shape)."""
+    crt, z, inst, trials, npr, dim0 = vals.shape
+    v = vals.reshape(crt, z, inst, trials, npr, dim0 // 4, 4)
+    limbs = torch.stack([((v >> (LIMB_BITS * k)) & 127).to(torch.int8)
+                         for k in range(NUM_LIMBS)], dim=2)
+    # (crt, z, L, inst, trials, npr, jw, 4) -> (crt, z, L, jw, inst, trials,
+    # npr, 4)
+    return limbs.permute(0, 1, 2, 6, 3, 4, 5, 7).contiguous()
+
+
+def db_write_items(params: Params, db: torch.Tensor, items: list,
+                   vals: torch.Tensor) -> None:
+    """Write item residues into the dense DB in place: vals (K, instances *
+    trials, crt, z) int32 NTT residues of items[0..K) (distinct indices,
+    item = dim0 index * num_per + num_per index)."""
+    num_per = 1 << params.db_dim_2
+    view = db.view(db.shape[:4] + (-1, num_per, 4))  # (.., jw, it, npr, 4)
+    limbs = torch.stack([((vals >> (LIMB_BITS * k)) & 127).to(torch.int8)
+                         for k in range(NUM_LIMBS)], dim=-1)
+    ii = torch.tensor([i % num_per for i in items], device=db.device)
+    jj = torch.tensor([i // num_per for i in items], device=db.device)
+    # the advanced indices (dims 3, 5, 6) are separated by a slice, so the
+    # indexed shape is (K, crt, z, L, it)
+    view[:, :, :, jj // 4, :, ii, jj % 4] = limbs.permute(0, 2, 3, 4, 1)
+
+
+def db_values(db: torch.Tensor) -> torch.Tensor:
+    """Inverse of db_limbs: int64 (crt, z, inst, trials, num_per, dim0)."""
+    crt, z, L, jw, inst, trials, npr, four = db.shape
+    v = sum(db[:, :, k].to(torch.int64) << (LIMB_BITS * k) for k in range(L))
+    return v.permute(0, 1, 3, 4, 5, 2, 6).reshape(
+        crt, z, inst, trials, npr, jw * four)
+
+
+def firstdim_multiply_plain(params: Params, db: torch.Tensor,
+                            q_arr: torch.Tensor) -> torch.Tensor:
+    """Exact int64 dot products in chunks of 64 columns, reduced per chunk."""
+    vals = db_values(db)
+    crt, z, inst, trials, npr, dim0 = vals.shape
+    vals = vals.reshape(crt, z, inst * trials * npr, dim0)
+    qv = q_arr.to(torch.int64)                        # (crt, z, dim0, R)
+    q = moduli_column(params, db.device, 3)
+    acc = None
+    for j0 in range(0, dim0, _SCAN_CHUNK):
+        j1 = min(dim0, j0 + _SCAN_CHUNK)
+        part = (vals[..., j0:j1, None] * qv[:, :, None, j0:j1, :]).sum(-2) % q
+        acc = part if acc is None else (acc + part) % q
+    return acc.to(torch.int32).reshape(crt, z, inst, trials, npr, -1)
+
+
+def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor):
+    crt, z, L, jw, inst, trials, npr, _ = db.shape
+    R = q_arr.shape[-1]
+    if (db.dtype != torch.int8 or q_arr.dtype != torch.int32
+            or q_arr.shape != (crt, z, 4 * jw, R) or crt != 2 or R % 2
+            or 4 * jw > 1 << 15):     # int32 weight sums: 4*127^2*dim0 < 2^31
+        raise ValueError(f"scan: db {db.dtype} {tuple(db.shape)}, query "
+                         f"{q_arr.dtype} {tuple(q_arr.shape)}")
+    q_arr = q_arr.contiguous()
+    _build.require_cuda(db, q_arr)
+    rt = 8 if R % 8 == 0 else 4 if R % 4 == 0 else 2
+    # columns per block: the largest multiple of rt that divides R, is at
+    # most 32 and keeps the block's query limbs within the shared memory
+    rb = max((d for d in range(rt, min(R, 32) + 1, rt)
+              if R % d == 0 and 16 * jw * d <= 200 * 1024), default=0)
+    if rb == 0:
+        raise ValueError(f"scan: dim0={4 * jw} leaves no shared memory for "
+                         f"{rt} query columns")
+    M = inst * trials * npr
+    out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
+                      device=db.device)
+    q0, q1 = params.moduli
+    _build.launch("scan", "sdk_scan", db.device, db.data_ptr(),
+                  q_arr.data_ptr(), out.data_ptr(), z, M, jw, R, rb, rt, q0,
+                  q1, _build.stream_of(db))
+    return out
+
+
+def firstdim_multiply(params: Params, db: torch.Tensor,
+                      q_arr: torch.Tensor) -> torch.Tensor:
+    """Encrypted-query x DB product (reference compute/dot_product.rs).
+
+    db: the dense int8 DB tensor (db_shape). q_arr: int32 (crt, z, dim0, R)
+    residues (R = 2 rows x batched queries, column 2*i + r).
+    Returns int32 (crt, z, inst, trials, num_per, R), exact mod q_c."""
+    if db.device.type == "cuda":
+        return _scan_launch(params, db, q_arr)
+    if db.device.type == "cpu":
+        return firstdim_multiply_plain(params, db, q_arr)
+    raise ValueError(f"unsupported device {db.device}")
+
+
+# ---------------------------------------------------------------------------
+# coefficient expansion (reference server.rs:19-121)
+# ---------------------------------------------------------------------------
+
+class ExpansionPlan:
+    """Static data for one Params on one device: automorphism tables per
+    round and the NTT'd -x^(2048-2^r) scalars."""
+
+    def __init__(self, params: Params, device):
+        self.params = params
+        self.neg1 = [u32_bits(hpoly.to_ntt(params, p.reshape(1, 1, -1))[0, 0],
+                              device) for p in params.get_v_neg1_raw()]
+        self.auto = []
+        for r in range(params.poly_len_log2):
+            perm, neg = automorph_tables(params, (params.poly_len >> r) + 1)
+            self.auto.append((torch.from_numpy(perm).to(device),
+                              torch.from_numpy(neg).to(device)))
+
+
+def _expansion_round_update(params: Params, cts: torch.Tensor, w, t_tables,
+                            mask: np.ndarray) -> torch.Tensor:
+    """One expansion butterfly on the cts (B, 2, 1, crt, n) whose mask entry
+    is True; the others keep their value. Only selected cts are computed."""
+    sel = None if mask.all() else torch.from_numpy(
+        np.flatnonzero(mask)).to(cts.device)
+    sub = cts if sel is None else cts.index_select(0, sel)
+    perm, neg = t_tables
+    raw = automorph_pair(params, from_ntt(params, sub), perm, neg)
+    t_exp = (w[0] if isinstance(w, tuple) else w).shape[1]
+    ginv = gadget_digits(params, raw[:, 0:1], t_exp, 1)   # (B, t_exp, 1, n)
+    w_g = matmul_mod(params, w, to_ntt_no_reduce(params, ginv))
+    res = add_mod(params, sub, w_g)
+    row1 = add_mod(params, res[:, 1:2], to_ntt(params, raw[:, 1:2]))
+    res = torch.cat([res[:, 0:1], row1], dim=1)
+    if sel is None:
+        return res
+    return cts.index_copy(0, sel, res)
+
+
+def coefficient_expansion(params: Params, plan: ExpansionPlan,
+                          ct0: torch.Tensor, v_w_left, v_w_right,
+                          max_bits_to_gen_right: int) -> torch.Tensor:
+    """ct0: (2, 1, crt, n). Returns (2^g, 2, 1, crt, n)."""
+    g = params.g()
+    stop_round = params.stop_round() if params.db_dim_2 > 0 else 0
+    cts = ct0[None]
+    for r in range(g):
+        t_tables = plan.auto[r]
+        cts = torch.cat([cts, scalar_mulmod(params, plan.neg1[r], cts)])
+        num = cts.shape[0]
+
+        # static skip masks (reference server.rs:33-44)
+        mask = np.ones(num, dtype=bool)
+        if stop_round > 0 and r > stop_round:
+            mask[1::2] = False
+        if stop_round > 0 and r == stop_round:
+            mask[1::2] = np.arange(num // 2) < max_bits_to_gen_right
+
+        if r == 0:
+            # both children use the right key (i%2==0 requires r != 0)
+            cts = _expansion_round_update(params, cts, v_w_right[0], t_tables,
+                                          mask)
+        else:
+            evens = _expansion_round_update(params, cts[0::2], v_w_left[r],
+                                            t_tables, mask[0::2])
+            odds = cts[1::2]
+            if mask[1::2].any():   # v_w_right holds stop_round + 1 keys
+                odds = _expansion_round_update(params, odds, v_w_right[r],
+                                               t_tables, mask[1::2])
+            cts = torch.stack([evens, odds], dim=1).reshape(cts.shape)
+    return cts
+
+
+def regev_to_gsw(params: Params, v_inp: torch.Tensor, v_conv) -> torch.Tensor:
+    """v_inp: (num_gsw * t_gsw, 2, 1, crt, n) NTT Regev cts; v_conv:
+    (2, 2*t_conv, crt, n) key. Returns (num_gsw, 2, 2*t_gsw, crt, n)."""
+    raw = from_ntt(params, v_inp)                           # (N, 2, 1, n)
+    ginv = gadget_digits(params, raw, 2 * params.t_conv, 2)
+    conv = matmul_mod(params, v_conv, to_ntt(params, ginv))  # (N, 2, 1, crt, n)
+    # interleave columns: ct[:, 2j] = conv_j, ct[:, 2j+1] = v_inp_j
+    both = torch.stack([conv, v_inp], dim=1).reshape(
+        params.db_dim_2, params.t_gsw * 2, 2, params.crt_count,
+        params.poly_len)
+    return both.transpose(1, 2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# fold + pack (reference server.rs:388-468, compute/{fold,pack}.rs)
+# ---------------------------------------------------------------------------
+
+def get_v_folding_neg(params: Params, v_folding: torch.Tensor,
+                      gadget_ntt: torch.Tensor) -> torch.Tensor:
+    """v_folding: (db_dim_2, 2, 2*t_gsw, crt, n); gadget_ntt: the NTT of
+    the gadget matrix, (2, 2*t_gsw, crt, n)."""
+    inv = to_ntt(params, invert_raw_pair(params, from_ntt(params, v_folding)))
+    return add_mod(params, gadget_ntt[None], inv)
+
+
+def fold_ciphertexts(params: Params, cts: torch.Tensor, v_folding: torch.Tensor,
+                     v_folding_neg: torch.Tensor) -> torch.Tensor:
+    """cts: raw (..., num_per, 2, 1, n); GSW-driven binary fold, returns
+    (..., 2, 1, n).
+
+    Implements the reference's all-zero shortcut (lib/server fold.rs:37-44,
+    "crucial for correctness") with masks: a round's output slot takes b
+    verbatim when a is exactly zero (an absent row) and a when b is zero,
+    bypassing the GSW selection whose key error would otherwise swamp the
+    decode budget. The GSW products still run for every slot."""
+    num_per = cts.shape[-4]
+    if num_per == 1:
+        return cts[..., 0, :, :, :]
+    ell = 2 * params.t_gsw
+    further_dims = params.db_dim_2
+    for cur_dim in range(further_dims):
+        num_per //= 2
+        a = cts[..., :num_per, :, :, :]
+        b = cts[..., num_per:2 * num_per, :, :, :]
+        za = (a == 0).flatten(-3).all(-1)[..., None, None, None]
+        zb = (b == 0).flatten(-3).all(-1)[..., None, None, None]
+        # [V_neg | V_fold] @ [G(a); G(b)] as one matmul with doubled k; the
+        # digits (< 2^bits_per < q) skip the mod-q pre-reduction
+        g_ntt = to_ntt_no_reduce(params, torch.cat(
+            [gadget_digits(params, a, ell, 2),
+             gadget_digits(params, b, ell, 2)], dim=-3))
+        key = further_dims - 1 - cur_dim
+        v_cat = torch.cat([v_folding_neg[key], v_folding[key]], dim=1)
+        f = from_ntt(params, matmul_mod(params, v_cat, g_ntt))
+        cts = torch.where(za, b, torch.where(zb, a, f))
+    return cts[..., 0, :, :, :]
+
+
+def pack(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
+    """v_ct: raw (n*n, 2, 1, n); v_packing: list of n keyed (n+1, t_conv)
+    matrices (version 0) or [w_key, w_shift] (version 1, pack.rs:46-100).
+    Returns packed NTT (n+1, n, crt, n)."""
+    n = params.n
+    cols = []
+    for c in range(n):
+        v_int = torch.zeros((n + 1, 1, params.crt_count, params.poly_len),
+                            dtype=torch.int32, device=v_ct.device)
+        for r in range(n):
+            ct = v_ct[r * n + c]
+            ct2 = to_ntt(params, ct[1:2])
+            ginv_ntt = to_ntt(params, gadget_digits(params, ct[0:1],
+                                                    params.t_conv, 1))
+            if params.version == 0:
+                prod = matmul_mod(params, v_packing[r], ginv_ntt)
+                v_int = v_int.clone()
+                v_int[1 + r:2 + r] = add_mod(params, v_int[1 + r:2 + r], ct2)
+                v_int = add_mod(params, v_int, prod)
+            else:
+                w_key, w_shift = v_packing[0], v_packing[1]
+                prod = matmul_mod(params, w_key, ginv_ntt)  # (n+1, 1, crt, z)
+                prod = torch.cat([prod[0:1], add_mod(params, prod[1:2], ct2),
+                                  prod[2:]])
+                for _ in range(r):
+                    ginv2 = gadget_digits(params,
+                                          from_ntt(params, prod[0:1]),
+                                          params.t_conv, 1)
+                    part1 = matmul_mod(params, w_shift,
+                                       to_ntt(params, ginv2))
+                    rest = prod[1:]
+                    part2 = torch.cat([torch.zeros_like(prod[0:1]),
+                                       rest[-1:], rest[:-1]])
+                    prod = add_mod(params, part1, part2)
+                v_int = add_mod(params, v_int, prod)
+        cols.append(v_int)
+    return torch.cat(cols, dim=1)

@@ -1,0 +1,103 @@
+"""Import hygiene and dispatch of the port: no jax anywhere in
+sdk_tpu_torch or chip_smoke.py, CPU tensors take the plain versions without
+building anything, and chip_smoke.py refuses to report without a card."""
+
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import sdk_tpu_torch
+from sdk_tpu.params import get_fast_expansion_testing_params
+from sdk_tpu_torch import _build
+
+ROOT = Path(__file__).resolve().parent.parent
+PARAMS = get_fast_expansion_testing_params()
+
+
+def port_modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages(
+        sdk_tpu_torch.__path__, "sdk_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = port_modules()
+    assert "sdk_tpu_torch.server.kv_server" in mods
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "assert not any(m.startswith(('sdk_tpu.ops', 'sdk_tpu.server', "
+            "'sdk_tpu.kv.ingest')) for m in sys.modules), 'jax-side module'\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sources_never_import_jax():
+    files = list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    assert not [str(f) for f in files if pat.search(f.read_text())]
+
+
+def test_cpu_tensors_take_plain_path_without_build(monkeypatch):
+    from sdk_tpu_torch.ops import ntt, spiral
+    from sdk_tpu_torch.ops.encode import ResponseEncodePlan
+
+    def no_build():
+        raise AssertionError("a CPU tensor must not build the kernels")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    before = dict(_build.LAUNCHES)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(0, 1 << 19, (2, 2, 2048)).astype(np.int32))
+    ntt.ntt_inverse(PARAMS, ntt.ntt_forward(PARAMS, x))
+    spiral.matmul_mod(PARAMS, x[:, None].expand(2, 2, 2, 2048).contiguous(),
+                      x[None, :, None].expand(4, 2, 1, 2, 2048).contiguous())
+    db = torch.zeros(spiral.db_shape(PARAMS), dtype=torch.int8)
+    spiral.firstdim_multiply(PARAMS, db, torch.zeros(
+        (2, 2048, 1 << PARAMS.db_dim_1, 2), dtype=torch.int32))
+    ResponseEncodePlan(PARAMS, "cpu").encode(torch.zeros(
+        (1, 3, 2, 2048), dtype=torch.int64))
+    assert _build.LAUNCHES == before
+    assert _build._lib is None
+
+
+def test_other_devices_raise():
+    from sdk_tpu_torch.ops import ntt
+
+    with pytest.raises(ValueError):
+        ntt.ntt_forward(PARAMS, torch.zeros((1, 2, 2048), dtype=torch.int32,
+                                            device="meta"))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cwd = ROOT
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
