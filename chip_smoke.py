@@ -8,26 +8,38 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases (any failure exits non-zero, with no result line):
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile the CUDA kernels from sdk_tpu_torch/csrc with nvcc.
-3. kernels: each kernel against its plain PyTorch version on the card at
+2. build: compile the CUDA kernels from sdk_tpu_torch/csrc with nvcc, one
+   process per source, all at once.
+3. kernels: A, A', B, D against their plain PyTorch versions on the card at
    the main path's shapes (1 GiB bucket), exactly (integer results,
-   tolerance 0), timed with CUDA events.
-4. small configs: whole responses of the port on the card byte-identical
-   to the host oracle (server_host.process_query), and decoding.
-5. full size: the 1 GiB bucket (2^15 items x 32 KiB, an 8.59 GB index)
-   filled with seeded random rows through the device ingest, three keys
-   written, each read through private_read and decoded, then one 16-query
-   batch from 4 client sessions, every response decoded. The scan kernel
-   is also held against its plain version on a z-slice of this index.
-6. report: launches of every kernel during step 5's reads (each must be
-   > 0), index bytes, peak device memory, read and batch wall times, and
-   the kernel table as one JSON line; then, as the last line, the device.
+   tolerance 0), timed with CUDA events beside their bounds.
+4. small configs: whole responses of the port on the card byte-identical to
+   the port on the CPU (the plain versions), decoded by the port's Client.
+5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
+   states: S1, about 100 keys written (compact index, sparse expansion);
+   S2, about 3,500 items (compact, dense expansion); S3, past 4,096 items
+   (migrated to the dense index). In each state single reads through
+   private_read and one 16-query batch (4 sessions x 4 queries) decode to
+   the written values. Kernel I (compact scan, in S1 and S2) and C (dense
+   scan, in S3) are held against their plain versions on the state's index,
+   E' (expansion round) at the expansion's shapes.
+6. full size: a second bucket filled with all 2^15 seeded rows (its first
+   flush stays compact, its second migrates; an 8.59 GB dense index), three
+   keys written, read through private_read and one 16-query batch.
+7. report: launches of every kernel on the main path (5 and 6, each must be
+   > 0), memory, read and batch wall times, and the kernel table as one
+   JSON line; then the card, and as the last line, the device.
+
+Launches are counted only while a phase drives the main path: the counts
+are set to 0 just before its reads and read just after, so the launches of
+a kernel-vs-plain comparison never count.
 """
 
 from __future__ import annotations
 
 import base64
 import bz2
+import gc
 import json
 import subprocess
 import sys
@@ -41,6 +53,9 @@ V1_SMALL = ('{"n": 2, "nu_1": 5, "nu_2": 2, "p": 256, "q2_bits": 22,'
             ' "t_gsw": 7, "t_conv": 3, "t_exp_left": 5, "t_exp_right": 5,'
             ' "instances": 2, "db_item_size": 16384, "version": 1}')
 KEYS = ("alpha", "bravo", "charlie")
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor-core peak (dense)
+INT32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit peak (fp32 rate)
 
 
 def log(msg: str) -> None:
@@ -68,10 +83,42 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes at the
+    HBM rate and the operations at the peak rate of their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def int_mm_ms(planes: torch.Tensor) -> float:
+    """torch._int_mm over the same int8 bytes as a scan reads, against 8
+    int8 columns: the nearest library yardstick. It computes no mod-q
+    recombination and the port never calls it."""
+    a = planes.reshape(-1, 256)
+    b = torch.ones((256, 8), dtype=torch.int8, device=planes.device)
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b), 10)
+    except RuntimeError as e:          # a yardstick only: record its absence
+        log(f"[library] torch._int_mm refused {tuple(a.shape)} x (256, 8): {e}")
+        return None
+
+
 def residues(params, gen: np.random.Generator, lead: tuple, dev):
     x = np.stack([gen.integers(0, q, lead + (params.poly_len,))
                   for q in params.moduli], axis=-2)
     return torch.from_numpy(x.astype(np.int32)).to(dev)
+
+
+def query_cols(params, gen, z: int, R: int, dev) -> torch.Tensor:
+    return torch.stack([torch.from_numpy(
+        gen.integers(0, q, (z, 1 << params.db_dim_1, R)).astype(np.int32))
+        for q in params.moduli]).to(dev)
 
 
 class KernelTable:
@@ -88,11 +135,33 @@ class KernelTable:
             raise AssertionError(f"{name} at {label}: kernel != plain "
                                  f"(max abs err {err})")
 
-    def timed(self, name, source, replaces, shape, ms, plain_ms, **extra):
-        """The kernel's row: where it comes from and its timed shape."""
+    def timed(self, name, source, replaces, shape, ms, plain_ms, bnd: dict,
+              library_ms=None, **extra):
+        """The kernel's row: where it comes from, its timed shape, its time
+        beside its plain version's, its bound and the library yardstick."""
         self.rows[name].update(route="cuda", source=source, replaces=replaces,
-                               launches=0, ms=ms, plain_ms=plain_ms,
-                               shape=shape, **extra)
+                               launches=0, ms=ms, plain_ms=plain_ms, **bnd,
+                               library_ms=library_ms, shape=shape, **extra)
+
+
+class Launches:
+    """Kernel launches of the main path, summed over the phases that drive
+    it. Each phase resets the counts just before its reads and adds them
+    just after."""
+
+    def __init__(self):
+        self.total: dict[str, int] = {}
+
+    def run(self, fn):
+        from sdk_tpu_torch import _build
+
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        for k, v in counts.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return out, counts
 
 
 def phase_kernels(params, dev, table: KernelTable) -> None:
@@ -106,6 +175,9 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
     digits = torch.from_numpy(gen.integers(0, 1 << 19, (4096, 2, 2048))
                               .astype(np.int32)).to(dev)
     src = "sdk_tpu_torch/csrc/ntt.cu"
+    tables = ntt.tables(params, dev)
+    # 1024 butterflies per stage x 11 stages per poly, ~6 integer ops each
+    ntt_ops = 6 * x.numel() // 2 * params.poly_len_log2
     for name, fn, plain, replaces, inputs in (
             ("ntt_forward", ntt.ntt_forward, ntt.ntt_forward_plain,
              "sdk_tpu/ops/ntt_jax.py:199", (x, digits)),
@@ -116,7 +188,9 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
                         max_abs_err(fn(params, inp), plain(params, inp)))
         table.timed(name, src, replaces, "(4096, 2, 2048) int32 residues",
                     cuda_ms(lambda: fn(params, x), 20),
-                    cuda_ms(lambda: plain(params, x), 3))
+                    cuda_ms(lambda: plain(params, x), 3),
+                    bound(2 * nbytes(x) + nbytes(tables), ntt_ops,
+                          INT32_OPS_PER_S))
 
     # B: the fold round [V_neg|V_fold] @ digits (k = 4*t_gsw, batch
     # IT*num_per/2), the keyed expansion product, the keyed v1 pack product
@@ -142,11 +216,14 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
             sj.matmul_mod(params, a, b),
             sj.matmul_mod_plain(params, a_plain, b)))
     _, a, b = cases[0]
+    out_numel = it_half * 2 * 1 * 2 * params.poly_len
     table.timed("matmul_mod", "sdk_tpu_torch/csrc/matmul_mod.cu",
                 "sdk_tpu/ops/spiral_jax.py:108",
                 f"fold round: {tuple(a.shape)} x {tuple(b.shape)} int32",
                 cuda_ms(lambda: sj.matmul_mod(params, a, b), 20),
-                cuda_ms(lambda: sj.matmul_mod_plain(params, a, b), 3))
+                cuda_ms(lambda: sj.matmul_mod_plain(params, a, b), 3),
+                bound(nbytes(a, b) + 4 * out_numel,
+                      2 * out_numel * 2 * ell, INT32_OPS_PER_S))
 
     # D: one packed response (instances, n+1, n, z) in [0, Q), with edges
     plan = ResponseEncodePlan(params, dev)
@@ -162,17 +239,26 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
                 "sdk_tpu/ops/encode_jax.py:99",
                 f"{tuple(packed.shape)} int64 -> {plan.num_words} words",
                 cuda_ms(lambda: plan.encode(packed), 20),
-                cuda_ms(lambda: plan.encode_plain(packed), 3))
+                cuda_ms(lambda: plan.encode_plain(packed), 3),
+                bound(nbytes(packed) + 4 * plan.num_words,
+                      10 * packed.numel(), INT32_OPS_PER_S))
+
+
+def random_rows(params, gen, idxs) -> dict:
+    n = params.instances * params.n * params.n * params.bytes_per_chunk()
+    return {i: gen.integers(0, 256, n, dtype=np.uint8).tobytes() for i in idxs}
 
 
 def phase_small_configs(dev) -> None:
-    from sdk_tpu import poly, server_host
-    from sdk_tpu.arith import log2_ceil
-    from sdk_tpu.client import Client
-    from sdk_tpu.params import get_fast_expansion_testing_params, params_from_json
-    from sdk_tpu.rng import ChaCha20Rng
+    from sdk_tpu_torch.client import Client
+    from sdk_tpu_torch.kv.ingest import DbUpdateBuffer
+    from sdk_tpu_torch.ops import spiral as sj
     from sdk_tpu_torch.ops.server import SpiralServerTorch
+    from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
+                                      params_from_json)
+    from sdk_tpu_torch.rng import ChaCha20Rng
 
+    gen = np.random.default_rng(SEED + 2)
     for label, params in (("fast v0", get_fast_expansion_testing_params()),
                           ("V1_SMALL", params_from_json(V1_SMALL))):
         target = 23 % params.num_items()
@@ -183,167 +269,450 @@ def phase_small_configs(dev) -> None:
         query = client.generate_query(
             target, noise_rng=ChaCha20Rng(b"\x24" * 32),
             query_seed=b"\x25" * 32)
-        item, db = server_host.generate_random_db_and_get_item(params, target)
-        srv = SpiralServerTorch(params, dev)
-        srv.set_db_host_tensor(db)
-        got = srv.process_query(pp, query)
-        if got != server_host.process_query(params, pp, query, db):
-            raise AssertionError(f"{label}: response differs from the host "
-                                 f"oracle")
-        want = poly.raw_to_bytes(params, item, log2_ceil(params.pt_modulus),
-                                 params.modp_words_per_chunk())
-        if client.decode_response(got) != want:
+        rows = random_rows(params, gen, range(params.num_items()))
+        buf = DbUpdateBuffer(params, "cpu")
+        for i, data in rows.items():
+            buf.upsert_raw(i, data)
+        db = buf.flush(torch.zeros(sj.db_shape(params), dtype=torch.int8))
+        responses = []
+        for device in (dev, "cpu"):
+            srv = SpiralServerTorch(params, device)
+            srv.set_db(db)
+            responses.append(srv.process_query(pp, query))
+        if responses[0] != responses[1]:
+            raise AssertionError(f"{label}: card response differs from the "
+                                 f"CPU plain versions'")
+        decoded = client.decode_response(responses[0])
+        if decoded[:len(rows[target])] != rows[target]:
             raise AssertionError(f"{label}: response does not decode")
-        log(f"[small] {label}: {len(got)} bytes, byte-identical to "
-            f"server_host.process_query, decodes")
+        log(f"[small] {label}: {len(responses[0])} bytes, card == CPU plain "
+            f"versions byte for byte, decodes")
 
 
 def check_value(client, response: bytes, key: str, value: bytes) -> None:
-    from sdk_tpu.kv.key_value import extract_result
+    from sdk_tpu_torch.kv.key_value import extract_result
 
     payload = bz2.BZ2Decompressor().decompress(client.decode_response(response))
     if extract_result(key, payload) != value:
         raise AssertionError(f"read of {key!r} decoded to the wrong value")
 
 
-def phase_full(dev, table: KernelTable) -> dict:
-    from sdk_tpu.client import Client
-    from sdk_tpu.kv.key_value import row_from_key
-    from sdk_tpu.params_store import get_params_from_store
-    from sdk_tpu.rng import ChaCha20Rng
-    from sdk_tpu_torch import _build
-    from sdk_tpu_torch.ops import spiral as sj
-    from sdk_tpu_torch.ops.server import index_hbm_bytes
-    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+class Sessions:
+    """One client for single reads, four for the batch, keys made once and
+    set up on every bucket the run builds."""
 
-    params = get_params_from_store(15, 32768)
-    out = {"params": {"nu_1": params.db_dim_1, "nu_2": params.db_dim_2,
-                      "instances": params.instances,
-                      "version": params.version},
-           "index_bytes": index_hbm_bytes(params)}
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    srv = SpiralKvServerTorch(params, device=dev)
-    n_items = params.num_items()
-    row_bytes = params.instances * params.n * params.n * params.bytes_per_chunk()
-    gen = np.random.default_rng(SEED + 1)
-    step = min(4096, n_items)
-    for s in range(0, n_items, step):
-        rows = gen.integers(0, 256, (step, row_bytes), dtype=np.uint8)
-        for i in range(step):
-            srv.update_item_raw(s + i, rows[i].tobytes())
-        srv.flush()
-    torch.cuda.synchronize()
-    out["fill_s"] = time.perf_counter() - t0
-    log(f"[full] filled {n_items} items x {row_bytes} B through the device "
-        f"ingest in {out['fill_s']:.1f} s")
+    def __init__(self, params):
+        from sdk_tpu_torch.client import Client
+        from sdk_tpu_torch.rng import ChaCha20Rng
 
-    value_len = min(16384, row_bytes // 4)   # 16 KiB at the 1 GiB bucket
-    values = {k: bytes(gen.integers(0, 256, value_len, dtype=np.uint8))
-              for k in KEYS}
-    srv.write_kv(json.dumps({k: base64.b64encode(v).decode()
-                             for k, v in values.items()}).encode())
-    srv.flush()
+        self.params = params
+        self.clients, self.pp = [], []
+        for ci in range(5):
+            c = Client(params)
+            self.pp.append(c.generate_keys_from_seed(
+                bytes([0x50 + ci]) * 32,
+                noise_rng=ChaCha20Rng(bytes([0x60 + ci]) * 32),
+                pp_seed=bytes([0x70 + ci]) * 32).serialize(params))
+            self.clients.append(c)
 
-    # scan kernel vs plain on a z-slice of the filled index
-    zs = 64
-    db = srv.engine.db
-    db_slice = db[:, :zs].contiguous()
-    dim0 = 1 << params.db_dim_1
-    extra = {}
-    for R in (2, 32):
-        q_full = torch.stack([torch.from_numpy(
-            gen.integers(0, q, (params.poly_len, dim0, R)).astype(np.int32))
-            for q in params.moduli]).to(dev)
-        q_slice = q_full[:, :zs].contiguous()
-        got = sj.firstdim_multiply(params, db_slice, q_slice)
-        table.check("scan", f"R={R} z-slice", max_abs_err(
-            got, sj.firstdim_multiply_plain(params, db_slice, q_slice)))
-        table.check("scan", f"R={R} full index", max_abs_err(
-            sj.firstdim_multiply(params, db, q_full)[:, :zs], got))
-        extra[f"ms_R{R}"] = cuda_ms(
-            lambda: sj.firstdim_multiply(params, db_slice, q_slice), 10)
-        extra[f"plain_ms_R{R}"] = cuda_ms(
-            lambda: sj.firstdim_multiply_plain(params, db_slice, q_slice), 2)
-        full_ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_full), 5)
-        extra[f"full_index_ms_R{R}"] = full_ms
-        extra[f"full_index_GBps_R{R}"] = out["index_bytes"] / full_ms / 1e6
-    table.timed("scan", "sdk_tpu_torch/csrc/scan.cu",
-                "sdk_tpu/ops/spiral_jax.py:430",
-                f"z-slice {zs} of {params.poly_len} of the filled index, "
-                f"R=2 (ms, plain_ms); R=32 and the full index in *_R*",
-                extra["ms_R2"], extra["plain_ms_R2"], **extra)
-    del db_slice, got, q_full, q_slice
+    def setup(self, srv) -> list[str]:
+        return [srv.setup(json.dumps(base64.b64encode(pp).decode()).encode())
+                for pp in self.pp]
 
-    # sessions: one client for single reads, four for the batch
-    clients, uids = [], []
-    for ci in range(5):
-        c = Client(params)
-        pp = c.generate_keys_from_seed(
-            bytes([0x50 + ci]) * 32, noise_rng=ChaCha20Rng(bytes([0x60 + ci]) * 32),
-            pp_seed=bytes([0x70 + ci]) * 32)
-        uid = srv.setup(json.dumps(base64.b64encode(
-            pp.serialize(params)).decode()).encode())
-        clients.append(c)
-        uids.append(uid)
+    def blob(self, uids, ci: int, key: str, salt: int) -> bytes:
+        from sdk_tpu_torch.kv.key_value import row_from_key
+        from sdk_tpu_torch.rng import ChaCha20Rng
 
-    def blob(ci: int, key: str, salt: int) -> bytes:
-        q = clients[ci].generate_query(
-            row_from_key(n_items, key),
-            noise_rng=ChaCha20Rng(bytes([0x80 + salt]) * 32),
-            query_seed=bytes([0xA0 + salt]) * 32)
-        return uids[ci].encode() + q.serialize(params)
+        q = self.clients[ci].generate_query(
+            row_from_key(self.params.num_items(), key),
+            noise_rng=ChaCha20Rng(bytes([salt % 256]) * 32),
+            query_seed=bytes([(salt + 101) % 256]) * 32)
+        return uids[ci].encode() + q.serialize(self.params)
 
-    single = [blob(0, k, i) for i, k in enumerate(KEYS)]
-    batch_keys = [KEYS[i % len(KEYS)] for i in range(16)]
-    batch = [blob(1 + i // 4, k, 8 + i) for i, k in enumerate(batch_keys)]
-
-    _build.reset_launches()
-    lat = []
-    for rnd in range(2):
-        for key, b in zip(KEYS, single):
+    def drive(self, srv, uids, keys, values, salt: int, n_single: int,
+              n_batch: int) -> dict:
+        """n_single reads of keys through private_read, n_batch 16-query
+        batches (4 sessions x 4 queries) through dispatch_read_blobs, every
+        response decoded. Returns the wall times."""
+        single = [self.blob(uids, 0, keys[i % len(keys)], salt + i)
+                  for i in range(n_single)]
+        batch_keys = [keys[i % len(keys)] for i in range(16)]
+        batch = [self.blob(uids, 1 + i // 4, k, salt + 32 + i)
+                 for i, k in enumerate(batch_keys)]
+        lat, batch_s = [], []
+        for i, b in enumerate(single):
             t = time.perf_counter()
             body = srv.private_read(json.dumps(
                 [base64.b64encode(b).decode()]).encode())
             lat.append(time.perf_counter() - t)
-            resp = base64.b64decode(json.loads(body)[0])
-            check_value(clients[0], resp, key, values[key])
-    log(f"[full] {len(lat)} single reads through private_read decoded to "
-        f"the written values")
-    batch_s = []
-    for _ in range(3):
-        t = time.perf_counter()
-        resps = srv.dispatch_read_blobs(batch)()
-        batch_s.append(time.perf_counter() - t)
-        for i, (key, resp) in enumerate(zip(batch_keys, resps)):
-            check_value(clients[1 + i // 4], resp, key, values[key])
-    log("[full] 3 x 16-query batches (4 sessions x 4 queries) decoded to "
-        "the written values")
-    launches = dict(_build.LAUNCHES)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 f"main path")
-        table.rows[name]["launches"] = n
-    out.update(
-        launches=launches,
-        single_read_ms_median=float(np.median(lat)) * 1e3,
-        single_read_ms_all=[x * 1e3 for x in lat],
-        batch16_ms_median=float(np.median(batch_s)) * 1e3,
-        batch16_ms_all=[x * 1e3 for x in batch_s],
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-        recall_at_1=1.0)
-    out["stages_ms"] = stage_breakdown(srv, clients[0], single[0])
+            check_value(self.clients[0], base64.b64decode(json.loads(body)[0]),
+                        keys[i % len(keys)], values[keys[i % len(keys)]])
+        for _ in range(n_batch):
+            t = time.perf_counter()
+            resps = srv.dispatch_read_blobs(batch)()
+            batch_s.append(time.perf_counter() - t)
+            for i, (key, resp) in enumerate(zip(batch_keys, resps)):
+                check_value(self.clients[1 + i // 4], resp, key, values[key])
+        return {"single_read_ms_median": float(np.median(lat)) * 1e3,
+                "single_read_ms_all": [x * 1e3 for x in lat],
+                "batch16_ms_median": float(np.median(batch_s)) * 1e3,
+                "batch16_ms_all": [x * 1e3 for x in batch_s]}
+
+
+def distinct_row_keys(n_items: int, count: int) -> list[str]:
+    """count keys whose rows differ, so each row holds one 16 KiB value."""
+    from sdk_tpu_torch.kv.key_value import row_from_key
+
+    keys, rows = [], set()
+    i = 0
+    while len(keys) < count:
+        key = f"key-{i:05d}"
+        row = row_from_key(n_items, key)
+        if row not in rows:
+            rows.add(row)
+            keys.append(key)
+        i += 1
+    return keys
+
+
+def value_len(params) -> int:
+    """16 KiB at the 1 GiB bucket (32 KiB rows)."""
+    row = params.instances * params.n * params.n * params.bytes_per_chunk()
+    return min(16384, row // 2)
+
+
+def write_values(srv, values: dict) -> None:
+    srv.write_kv(json.dumps({k: base64.b64encode(v).decode()
+                             for k, v in values.items()}).encode())
+
+
+def check_compact_scan(params, db, gen, table: KernelTable,
+                       state: str) -> dict:
+    """Kernel I against its plain version on a z-slice of the state's
+    compact index at R = 2 and 32 (a single read and a 16-query batch), and
+    timed on the whole index; returns the z-slice row and the whole-index
+    times."""
+    from sdk_tpu_torch.ops import spiral as sj
+
+    zs = 64
+    sl = sj.CompactDb(db.planes[:, :zs].contiguous(), db.idx_j)
+    compact_bytes = nbytes(db.planes)
+    extra = {"cap_bin": db.cap_bin, "compact_bytes": compact_bytes}
+    for R in (2, 32):
+        q_full = query_cols(params, gen, params.poly_len, R, db.planes.device)
+        q_sl = q_full[:, :zs].contiguous()
+        got = sj.firstdim_multiply(params, sl, q_sl)
+        table.check("scan_compact", f"{state} R={R} z-slice", max_abs_err(
+            got, sj.firstdim_multiply_compact_plain(params, sl, q_sl)))
+        table.check("scan_compact", f"{state} R={R} whole index", max_abs_err(
+            sj.firstdim_multiply(params, db, q_full)[:, :zs], got))
+        out_bytes = 4 * got.numel() * (params.poly_len // zs)
+        full_ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_full), 5)
+        b = bound(compact_bytes + nbytes(db.idx_j, q_full) + out_bytes,
+                  2 * compact_bytes * 4 * R, INT8_OPS_PER_S)
+        extra[f"full_index_ms_R{R}"] = full_ms
+        extra[f"full_index_bound_ms_R{R}"] = b["bound_ms"]
+        extra[f"full_index_bound_by_R{R}"] = b["bound_by"]
+        extra[f"full_index_GBps_R{R}"] = compact_bytes / full_ms / 1e6
+        extra[f"full_index_share_of_bound_R{R}"] = b["bound_ms"] / full_ms
+        if R == 2:
+            row = dict(
+                ms=cuda_ms(lambda: sj.firstdim_multiply(params, sl, q_sl), 10),
+                plain_ms=cuda_ms(lambda: sj.firstdim_multiply_compact_plain(
+                    params, sl, q_sl), 2),
+                bnd=bound(nbytes(sl.planes, sl.idx_j, q_sl, got),
+                          2 * nbytes(sl.planes) * 4 * R, INT8_OPS_PER_S),
+                library_ms=int_mm_ms(sl.planes))
+        del q_full, q_sl, got
+    extra["ms_R2"] = row["ms"]
+    extra["plain_ms_R2"] = row["plain_ms"]
+    extra["bound_ms_R2"] = row["bnd"]["bound_ms"]
+    return {"row": row, "extra": extra}
+
+
+def check_dense_scan(params, db, gen, table: KernelTable, label: str) -> dict:
+    """Kernel C against its plain version on a z-slice of a dense index and
+    on the whole index; returns the z-slice row and the whole-index times."""
+    from sdk_tpu_torch.ops import spiral as sj
+
+    zs = 64
+    db_slice = db[:, :zs].contiguous()
+    index_bytes = nbytes(db)
+    extra, row = {}, {}
+    for R in (2, 32):
+        q_full = query_cols(params, gen, params.poly_len, R, db.device)
+        q_slice = q_full[:, :zs].contiguous()
+        got = sj.firstdim_multiply(params, db_slice, q_slice)
+        table.check("scan", f"R={R} z-slice of the {label}", max_abs_err(
+            got, sj.firstdim_multiply_plain(params, db_slice, q_slice)))
+        table.check("scan", f"R={R} {label}", max_abs_err(
+            sj.firstdim_multiply(params, db, q_full)[:, :zs], got))
+        full_ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_full), 5)
+        b = bound(index_bytes + nbytes(q_full) + 4 * got.numel()
+                  * (params.poly_len // zs), 2 * index_bytes * 4 * R,
+                  INT8_OPS_PER_S)
+        extra[f"full_index_ms_R{R}"] = full_ms
+        extra[f"full_index_bound_ms_R{R}"] = b["bound_ms"]
+        extra[f"full_index_bound_by_R{R}"] = b["bound_by"]
+        extra[f"full_index_GBps_R{R}"] = index_bytes / full_ms / 1e6
+        extra[f"full_index_share_of_bound_R{R}"] = b["bound_ms"] / full_ms
+        zb = bound(nbytes(db_slice, q_slice, got),
+                   2 * nbytes(db_slice) * 4 * R, INT8_OPS_PER_S)
+        extra[f"ms_R{R}"] = cuda_ms(
+            lambda: sj.firstdim_multiply(params, db_slice, q_slice), 10)
+        extra[f"plain_ms_R{R}"] = cuda_ms(
+            lambda: sj.firstdim_multiply_plain(params, db_slice, q_slice), 2)
+        extra[f"bound_ms_R{R}"] = zb["bound_ms"]
+        if R == 2:
+            row = dict(ms=extra["ms_R2"], plain_ms=extra["plain_ms_R2"],
+                       bnd=zb, library_ms=int_mm_ms(db_slice))
+        del q_full, q_slice, got
+    return {"row": row, "extra": extra}
+
+
+def check_expand_round(params, splan, gen, dev, table: KernelTable) -> None:
+    """E' against its plain version at the dense expansion's batch sizes
+    (1, 64, 512 selected cts; left and right key widths) and at the widest
+    round of the S1 sparse schedule; timed at 512."""
+    from sdk_tpu_torch.ops import spiral as sj
+
+    plan = sj.ExpansionPlan(params, dev)
+    widest = max(max(rd["even_sel"].numel(), rd["odd_sel"].numel())
+                 for rd in splan.rounds)
+    cases = [(b, t) for b in (1, 64, 512)
+             for t in (params.t_exp_left, params.t_exp_right)]
+    cases.append((widest, params.t_exp_left))
+    for i, (B, t_exp) in enumerate(cases):
+        x = residues(params, gen, (B, 2, 1), dev)
+        x[0, :, :, :, :16] = 0            # negated zeros: Q, not 0
+        tables = plan.auto[i % len(plan.auto)]
+        table.check("expand_round", f"B={B} t_exp={t_exp}", max_abs_err(
+            sj.expand_round(params, x, tables, t_exp),
+            sj.expand_round_plain(params, x, tables, t_exp)))
+    x = residues(params, gen, (512, 2, 1), dev)
+    tables = plan.auto[3]
+    t_exp = params.t_exp_left
+    out_bytes = 4 * (512 * t_exp + 512) * 2 * params.poly_len
+    table.timed("expand_round", "sdk_tpu_torch/csrc/expand_round.cu",
+                "sdk_tpu/ops/spiral_jax.py:554",
+                f"B=512 selected cts, t_exp={t_exp}: (512, 2, 1, 2, 2048) "
+                f"int32 -> ({512 * t_exp + 512}, 2, 2048); also checked at "
+                f"{[c for c in cases]} (B, t_exp), the last the widest S1 "
+                f"sparse round",
+                cuda_ms(lambda: sj.expand_round(params, x, tables, t_exp), 20),
+                cuda_ms(lambda: sj.expand_round_plain(params, x, tables,
+                                                      t_exp), 3),
+                bound(nbytes(x, *tables) + out_bytes,
+                      30 * x.numel() // 2, INT32_OPS_PER_S))
+
+
+def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
+                    launches: Launches, s1_keys: int = 100,
+                    s2_items: int = 3500, s3_items: int = 4200) -> dict:
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    n_items = params.num_items()
+    gen = np.random.default_rng(SEED + 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = SpiralKvServerTorch(params)            # the default device: cuda
+    if srv.device.type != dev.type:
+        raise AssertionError(f"default device is {srv.device}")
+    db = srv.engine.db
+    compact_bytes = nbytes(db.planes)
+    # 2 channels x 2048 z x 4 limbs x 16 (instance, trial) x 64 bins x 8
+    # slots = 134,217,728 bytes at the 1 GiB bucket
+    want = int(np.prod(sj.compact_shape(params, 8)))
+    if not isinstance(db, sj.CompactDb) or db.cap_bin != 8 \
+            or compact_bytes != want:
+        raise AssertionError(f"a new bucket must hold a cap-8 compact index "
+                             f"of {want} bytes, got {compact_bytes}")
+    out = {"new_bucket": {"compact_bytes": compact_bytes,
+                          "memory_allocated": torch.cuda.memory_allocated(dev)}}
+    log(f"[lifecycle] new 1 GiB bucket: compact index, cap 8, "
+        f"{compact_bytes} bytes of planes; memory_allocated "
+        f"{out['new_bucket']['memory_allocated']}")
+    uids = sessions.setup(srv)
+
+    # S1: ~100 keys, compact, sparse expansion
+    keys = distinct_row_keys(n_items, s1_keys)
+    values = {k: bytes(gen.integers(0, 256, value_len(params), dtype=np.uint8))
+              for k in keys}
+    write_values(srv, values)
+    srv.flush()
+    if srv.engine._splan is None or not isinstance(srv.engine.db, sj.CompactDb):
+        raise AssertionError("S1: want a compact index with sparse expansion")
+    splan = srv.engine._splan
+    s1, counts = launches.run(lambda: sessions.drive(
+        srv, uids, keys, values, 0, 3, 1))
+    if min(counts["scan_compact"], counts["expand_round"]) <= 0:
+        raise AssertionError(f"S1 reads did not launch I and E': {counts}")
+    s1.update(populated_items=len(srv._populated_items),
+              populated_dim0_rows=len(splan.populated),
+              layout=srv.meta()["index_layout"], launches=counts)
+    out["S1"] = s1
+    log(f"[lifecycle] S1: {len(keys)} keys, {len(splan.populated)} of "
+        f"{1 << params.db_dim_1} first-dim rows; compact + sparse expansion; 3 reads + 1 batch "
+        f"decoded; single median {s1['single_read_ms_median']:.2f} ms, batch "
+        f"{s1['batch16_ms_median']:.2f} ms")
+    cs1 = check_compact_scan(params, srv.engine.db, gen, table, "S1")
+    out["compact_scan_S1"] = cs1["extra"]
+    log(f"[lifecycle] I equals its plain version on the S1 index (cap "
+        f"{cs1['extra']['cap_bin']}, R=2, 32); whole index R=2 "
+        f"{cs1['extra']['full_index_ms_R2']:.4f} ms, R=32 "
+        f"{cs1['extra']['full_index_ms_R32']:.4f} ms")
+
+    # S2: ~3,500 items, compact, dense expansion
+    taken = set(srv._populated_items)
+    free = np.array(sorted(set(range(n_items)) - taken))
+    extra_items = gen.choice(free, s2_items - len(taken), replace=False)
+    for i, data in random_rows(params, gen, sorted(extra_items)).items():
+        srv.update_item_raw(int(i), data)
+    srv.flush()
+    db = srv.engine.db
+    if not isinstance(db, sj.CompactDb) or srv.engine._splan is not None:
+        raise AssertionError("S2: want a compact index, dense expansion")
+    s2, counts = launches.run(lambda: sessions.drive(
+        srv, uids, keys, values, 64, 3, 1))
+    s2.update(populated_items=len(srv._populated_items), cap_bin=db.cap_bin,
+              compact_bytes=nbytes(db.planes),
+              layout=srv.meta()["index_layout"], launches=counts)
+    out["S2"] = s2
+    log(f"[lifecycle] S2: {len(srv._populated_items)} items "
+        f"({len(srv._populated_items) / n_items:.1%}); compact, cap_bin "
+        f"{db.cap_bin} ({s2['compact_bytes']} bytes), dense expansion; reads "
+        f"+ batch decoded; single median {s2['single_read_ms_median']:.2f} "
+        f"ms, batch {s2['batch16_ms_median']:.2f} ms")
+    cs2 = check_compact_scan(params, db, gen, table, "S2")
+    out["compact_scan"] = cs2["extra"]
+    row = cs2["row"]
+    table.timed("scan_compact", "sdk_tpu_torch/csrc/scan_compact.cu",
+                "sdk_tpu/ops/spiral_jax.py:291",
+                f"z-slice 64 of {params.poly_len} of the S2 compact index "
+                f"(cap {db.cap_bin}), R=2; the whole index in full_index_*; "
+                f"the S1 index (cap {cs1['extra']['cap_bin']}) in S1_*; "
+                f"library_ms: torch._int_mm over the same int8 bytes x 8 "
+                f"int8 columns (no mod-q recombination)",
+                row["ms"], row["plain_ms"], row["bnd"], row["library_ms"],
+                **cs2["extra"],
+                **{f"S1_{k}": v for k, v in cs1["extra"].items()})
+    log(f"[lifecycle] I equals its plain version on the S2 index (R=2, 32); "
+        f"whole index R=2 {cs2['extra']['full_index_ms_R2']:.4f} ms, R=32 "
+        f"{cs2['extra']['full_index_ms_R32']:.4f} ms")
+    check_expand_round(params, splan, gen, dev, table)
+    log("[lifecycle] E' equals its plain version (B = 1, 64, 512, left and "
+        "right keys, the widest S1 sparse round)")
+    del db
+
+    # S3: past 4,096 items: the next flush migrates to the dense index
+    taken = set(srv._populated_items)
+    free = np.array(sorted(set(range(n_items)) - taken))
+    more = gen.choice(free, s3_items - len(taken), replace=False)
+    for i, data in random_rows(params, gen, sorted(more)).items():
+        srv.update_item_raw(int(i), data)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    srv.flush()
+    torch.cuda.synchronize()
+    migrate_s = time.perf_counter() - t
+    if isinstance(srv.engine.db, sj.CompactDb):
+        raise AssertionError("S3: the bucket did not migrate to dense")
+    peak = torch.cuda.max_memory_allocated(dev)
+    s3, counts = launches.run(lambda: sessions.drive(
+        srv, uids, keys, values, 128, 3, 1))
+    if counts["scan"] <= 0 or counts["scan_compact"] != 0:
+        raise AssertionError(f"S3 reads did not scan the dense index: {counts}")
+    s3.update(populated_items=len(srv._populated_items),
+              layout=srv.meta()["index_layout"], flush_with_migration_s=migrate_s,
+              migration_peak_memory=peak, launches=counts)
+    out["S3"] = s3
+    log(f"[lifecycle] S3: {len(srv._populated_items)} items; migrated to "
+        f"dense in a {migrate_s:.2f} s flush, peak memory {peak}; reads + "
+        f"batch decoded; single median {s3['single_read_ms_median']:.2f} ms, "
+        f"batch {s3['batch16_ms_median']:.2f} ms")
+    c = check_dense_scan(params, srv.engine.db, gen, table, "migrated index")
+    out["migrated_scan"] = c["extra"]
+    log("[lifecycle] C equals its plain version on the migrated index")
+    del srv, c
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
-def stage_breakdown(srv, client, blob: bytes) -> dict:
+def phase_full(params, sessions: Sessions, dev, table: KernelTable,
+               launches: Launches) -> dict:
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    out = {"params": {"nu_1": params.db_dim_1, "nu_2": params.db_dim_2,
+                      "instances": params.instances,
+                      "version": params.version},
+           "index_bytes": int(np.prod(sj.db_shape(params)))}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = SpiralKvServerTorch(params, device=dev)
+    n_items = params.num_items()
+    gen = np.random.default_rng(SEED + 1)
+    step = n_items // 8         # 4096: the first flush stays compact (cap 64)
+    layouts = []
+    for s in range(0, n_items, step):
+        for i, data in random_rows(params, gen, range(s, s + step)).items():
+            srv.update_item_raw(i, data)
+        srv.flush()
+        db = srv.engine.db
+        layouts.append(f"compact cap {db.cap_bin}"
+                       if isinstance(db, sj.CompactDb) else "dense")
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    out["layouts_after_each_flush"] = layouts
+    if not layouts[0].startswith("compact") or layouts[1] != "dense":
+        raise AssertionError(f"fill: want compact then dense, got "
+                             f"{layouts[:2]}")
+    log(f"[full] filled {n_items} items through the device ingest in "
+        f"{out['fill_s']:.1f} s; after each flush: {layouts[0]}, then "
+        f"{layouts[1]} (migrated)")
+
+    values = {k: bytes(gen.integers(0, 256, value_len(params), dtype=np.uint8))
+              for k in KEYS}
+    write_values(srv, values)
+    srv.flush()
+
+    c = check_dense_scan(params, srv.engine.db, gen, table, "full index")
+    table.timed("scan", "sdk_tpu_torch/csrc/scan.cu",
+                "sdk_tpu/ops/spiral_jax.py:430",
+                f"z-slice 64 of {params.poly_len} of the filled index, R=2 "
+                f"(ms, plain_ms, bound_ms, library_ms); R=32 and the whole "
+                f"index in *_R*; library_ms: torch._int_mm over the same int8 "
+                f"bytes x 8 int8 columns (no mod-q recombination)",
+                c["row"]["ms"], c["row"]["plain_ms"], c["row"]["bnd"],
+                c["row"]["library_ms"], **c["extra"])
+    log("[full] scan equals its plain version on the filled index "
+        "(R=2, R=32)")
+    del c
+
+    uids = sessions.setup(srv)
+    reads, counts = launches.run(lambda: sessions.drive(
+        srv, uids, list(KEYS), values, 192, 6, 3))
+    out.update(reads, launches=counts,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               recall_at_1=1.0)
+    log(f"[full] 6 single reads through private_read and 3 x 16-query "
+        f"batches decoded; single median {reads['single_read_ms_median']:.2f} "
+        f"ms, batch {reads['batch16_ms_median']:.2f} ms")
+    out["stages_ms"] = stage_breakdown(srv, sessions.blob(uids, 0, KEYS[0], 250))
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage_breakdown(srv, blob: bytes) -> dict:
     """Median wall ms of each stage of one read, synchronised per stage
     (for the breakdown only; the launches are not counted)."""
-    eng = srv.engine
-    pp_dev, query = srv._parse_request(blob)
     from sdk_tpu_torch.ops import spiral as sj
 
+    eng = srv.engine
+    pp_dev, query = srv._parse_request(blob)
     times: dict[str, list] = {"expand": [], "scan": [], "fold": [],
                               "pack_encode": []}
     for _ in range(5):
@@ -378,30 +747,43 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
-        f"{torch.cuda.device_count()} device(s)")
+        f"{torch.cuda.device_count()} device(s) visible, 1 used")
 
-    from sdk_tpu.params_store import get_params_from_store
     from sdk_tpu_torch import _build
+    from sdk_tpu_torch.params_store import get_params_from_store
 
     t = time.perf_counter()
     _build.lib()
-    log(f"[build] kernels built and loaded in {time.perf_counter() - t:.1f} s")
+    build_s = time.perf_counter() - t
+    log(f"[build] kernels built in parallel and loaded in {build_s:.1f} s")
 
+    params = get_params_from_store(15, 32768)
     table = KernelTable()
-    phase_kernels(get_params_from_store(15, 32768), dev, table)
+    phase_kernels(params, dev, table)
     log("[kernels] A, A', B, D equal their plain versions at the main "
         "path's shapes")
     phase_small_configs(dev)
-    full = phase_full(dev, table)
-    log("[full] scan equals its plain version on the filled index "
-        "(R=2, R=32)")
+    t = time.perf_counter()
+    sessions = Sessions(params)
+    log(f"[sessions] 5 client key sets in {time.perf_counter() - t:.1f} s")
+    launches = Launches()
+    lifecycle = phase_lifecycle(params, sessions, dev, table, launches)
+    full = phase_full(params, sessions, dev, table, launches)
 
-    log("[report] " + json.dumps({"card": card, **full}))
+    for name in _build.LAUNCHES:
+        n = launches.total.get(name, 0)
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"main path")
+        table.rows[name]["launches"] = n
+    log("[report] " + json.dumps({"card": card, "build_s": build_s,
+                                  "launches": launches.total,
+                                  "lifecycle": lifecycle, "full": full}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,18 +1,24 @@
 """sdk_tpu_torch — the Spiral private-read path of sdk_tpu on PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper (H100).
 
-The JAX package ``sdk_tpu`` stays the reference; this package reuses its
-jax-free host plane (params, client, poly, ntt_host, server_host, arith,
-bitpack, rng, kv.key_value, kv.write, telemetry) by import and ports the
-device plane:
+The JAX package ``sdk_tpu`` stays the reference. This package has no
+runtime dependency on it: it carries its own copy of the numpy host plane
+(``params``, ``params_store``, ``client``, ``poly``, ``ntt_host``,
+``arith``, ``bitpack``, ``rng``, ``discrete_gaussian``, ``noise_estimate``,
+``kv.key_value``, ``kv.write``, and the jax-free parts of ``telemetry`` and
+``debug_hooks``) and ports the device plane:
 
 - ``ops.ntt``      negacyclic NTT           (kernel group A, csrc/ntt.cu)
-- ``ops.spiral``   server stages; matmul_mod (B, csrc/matmul_mod.cu) and
-                   the first-dim scan        (C, csrc/scan.cu)
+- ``ops.spiral``   server stages; matmul_mod (B, csrc/matmul_mod.cu), the
+                   dense first-dim scan      (C, csrc/scan.cu), the compact
+                   scan                      (I, csrc/scan_compact.cu), the
+                   expansion round's body    (E', csrc/expand_round.cu) and
+                   the sparse expansion schedule (J)
 - ``ops.encode``   response rescale + pack  (D, csrc/encode.cu)
 - ``ops.server``   SpiralServerTorch engine
-- ``kv.ingest``    device ingest into the dense index
-- ``server.kv_server``  SpiralKvServerTorch bucket
+- ``kv.ingest``    device ingest into the compact or dense index, migration
+- ``server.kv_server``  SpiralKvServerTorch bucket (compact -> dense
+                   lifecycle)
 
 Tensors on a CUDA device run the kernels (built with nvcc on first use,
 see ``_build``); tensors on the CPU run each kernel's plain PyTorch version.

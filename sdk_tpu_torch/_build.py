@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-The sources under ``sdk_tpu_torch/csrc/*.cu`` have a plain C interface.
-They are compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into
-one shared library under ``build/sdk_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags so an edit rebuilds, and loaded
-with ``ctypes``. A missing ``nvcc`` or a failed build raises.
+Each source ``sdk_tpu_torch/csrc/<name>.cu`` has a plain C interface. At
+first use every source is compiled with ``nvcc`` for Hopper (``sm_90a``)
+into a shared library of its own under ``build/sdk_tpu_torch/`` at the
+repository root; the ``nvcc`` processes run side by side. Each library is
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edit rebuilds only what it touches, and is loaded with
+``ctypes``. A missing ``nvcc`` or a failed build raises.
 
 Every C entry point enqueues its kernel on the stream it is given and
 returns the ``cudaGetLastError()`` of the launch; :func:`launch` raises on a
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -30,23 +33,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches by kernel name, counted where each wrapper launches.
 LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
-                            "matmul_mod": 0, "scan": 0, "encode": 0}
+                            "matmul_mod": 0, "scan": 0, "encode": 0,
+                            "scan_compact": 0, "expand_round": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
 _ULL = ctypes.c_ulonglong
+# C entry point -> (source stem, argument types)
 _SIGNATURES = {
-    "sdk_ntt": (_P, _P, _P, _LL, _I, _U, _U, _I, _P),
-    "sdk_matmul_mod": (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _U, _U, _P),
-    "sdk_scan": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _P),
-    "sdk_encode": (_P, _P, _LL, _I, _I, _I, _U, _U, _U, _U, _U, _U, _U, _ULL,
-                   _U, _P),
+    "sdk_ntt": ("ntt", (_P, _P, _P, _LL, _I, _U, _U, _I, _P)),
+    "sdk_error_string": ("ntt", (_I,)),
+    "sdk_matmul_mod": ("matmul_mod",
+                       (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _U, _U, _P)),
+    "sdk_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _P)),
+    "sdk_scan_compact": ("scan_compact", (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _U, _U, _P)),
+    "sdk_encode": ("encode", (_P, _P, _LL, _I, _I, _I, _U, _U, _U, _U, _U, _U,
+                              _U, _ULL, _U, _P)),
+    "sdk_expand_round": ("expand_round", (_P, _P, _P, _P, _LL, _I, _I, _I,
+                                          _ULL, _U, _U, _ULL, _P)),
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: dict | None = None
 
 
 def nvcc_path() -> str:
@@ -62,21 +73,9 @@ def nvcc_path() -> str:
     return path
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash) and
-    return its path."""
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"libsdk_tpu_torch_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(nvcc: str, src: Path, out: Path) -> None:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -84,22 +83,50 @@ def build() -> Path:
             f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
             f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+def build() -> dict[str, Path]:
+    """Compile every csrc/*.cu into its shared library (once per hash), all
+    sources at once, and return {source stem: library path}."""
+    sources = sorted(CSRC.glob("*.cu"))
+    common = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        common.update(hdr.name.encode())
+        common.update(hdr.read_bytes())
+    libs, todo = {}, []
+    for src in sources:
+        h = common.copy()
+        h.update(src.read_bytes())
+        out = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+        libs[src.stem] = out
+        if not out.exists():
+            todo.append((src, out))
+    if todo:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            futures = [pool.submit(_compile, nvcc, s, o) for s, o in todo]
+        errors = [str(f.exception()) for f in futures if f.exception()]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return libs
+
+
+def lib() -> dict:
+    """The C entry points by name, built and loaded on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(so, name)
+            sos = {stem: ctypes.CDLL(str(path))
+                   for stem, path in build().items()}
+            fns = {}
+            for name, (stem, argtypes) in _SIGNATURES.items():
+                fn = getattr(sos[stem], name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            so.sdk_error_string.argtypes = (ctypes.c_int,)
-            so.sdk_error_string.restype = ctypes.c_char_p
-            _lib = so
+                fn.restype = (ctypes.c_char_p if name == "sdk_error_string"
+                              else ctypes.c_int)
+                fns[name] = fn
+            _lib = fns
     return _lib
 
 
@@ -111,11 +138,11 @@ def stream_of(t: torch.Tensor) -> int:
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` with ``device`` current, raise on a
     launch error, count the launch."""
-    so = lib()
+    fns = lib()
     with torch.cuda.device(device):
-        rc = getattr(so, entry)(*args)
+        rc = fns[entry](*args)
     if rc != 0:
-        msg = so.sdk_error_string(rc).decode()
+        msg = fns["sdk_error_string"](rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
     LAUNCHES[name] += 1
 

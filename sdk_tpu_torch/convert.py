@@ -10,19 +10,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdk_tpu.params import Params
+from .params import Params
 
-from .ops.spiral import LIMB_BITS, NUM_LIMBS, db_limbs
+from .ops.spiral import LIMB_BITS, NUM_LIMBS, CompactDb, db_limbs
 
 
 def db_from_jax_planes(params: Params, planes) -> torch.Tensor:
     """The JAX engine's latency-layout limb planes (server_jax.py:84-88: a
     tuple of crt*NUM_LIMBS int8 arrays (z, inst, trials, num_per, dim0),
-    plane c*NUM_LIMBS + k = limb k of channel c) -> the port's dense DB."""
+    plane c*NUM_LIMBS + k = limb k of channel c) -> the port's dense DB.
+    The same holds for compact planes, with cap_bin in place of dim0."""
     limbs = np.stack([np.asarray(p) for p in planes]).astype(np.int64)
     limbs = limbs.reshape((params.crt_count, NUM_LIMBS) + limbs.shape[1:])
     vals = sum(limbs[:, k] << (LIMB_BITS * k) for k in range(NUM_LIMBS))
     return db_limbs(params, torch.from_numpy(vals))
+
+
+def compact_from_jax(params: Params, planes, idx_j) -> CompactDb:
+    """A JAX CompactDb's planes (crt*NUM_LIMBS int8 arrays (z, inst, trials,
+    num_per, cap_bin)) and idx_j (num_per, cap_bin) -> the port's CompactDb.
+    cap_bin must be a multiple of 4."""
+    return CompactDb(db_from_jax_planes(params, planes),
+                     torch.from_numpy(np.array(idx_j, dtype=np.int32)))
 
 
 def db_from_host_tensor(params: Params, db_u64: np.ndarray) -> torch.Tensor:

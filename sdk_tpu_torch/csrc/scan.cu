@@ -9,10 +9,9 @@
 //
 // D values (< q < 2^28) are stored as four 7-bit limbs in int8; the query is
 // split into four 7-bit limbs in shared memory. Limb products are summed by
-// weight s = k + l with __dp4a into int32 (at most 4 * 127^2 * dim0 < 2^31
-// for dim0 <= 2^15), and the epilogue recombines sum_s S_s * (2^{7s} mod q)
-// in a uint64 (< 7 * 2^26 * 2^28) with one reduction. The int32 partials
-// live in registers only: they never reach device memory.
+// weight with __dp4a into int32 and recombined mod q by the epilogue shared
+// with the compact scan (scan_common.cuh). The int32 partials live in
+// registers only: they never reach device memory.
 //
 // DB layout (the port's single dense layout), as int32 words:
 //   (crt, Z, L=4, JW=dim0/4, M)   with M = instances * trials * num_per
@@ -36,11 +35,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "scan_common.cuh"
+
 namespace {
 
-constexpr int kLimbs = 4;
-constexpr int kWeights = 2 * kLimbs - 1;
-constexpr int kRowsPerBlock = 128;
+using scan_common::kLimbs;
+using scan_common::kRowsPerBlock;
+using scan_common::kWeights;
 
 template <int RT>
 __global__ void scan_kernel(const int32_t* __restrict__ db,
@@ -68,7 +69,8 @@ __global__ void scan_kernel(const int32_t* __restrict__ db,
     for (int l = 0; l < kLimbs; ++l) {
       uint32_t word = 0;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) word |= ((v[b] >> (7 * l)) & 127u) << (8 * b);
+      for (int b = 0; b < 4; ++b)
+        word |= scan_common::limb(v[b], l) << (8 * b);
       qs[(l * JW + jw) * RB + r] = static_cast<int32_t>(word);
     }
   }
@@ -103,19 +105,7 @@ __global__ void scan_kernel(const int32_t* __restrict__ db,
     }
   }
 
-  uint64_t wpow[kWeights];
-  wpow[0] = 1;
-#pragma unroll
-  for (int s = 1; s < kWeights; ++s) wpow[s] = (wpow[s - 1] << 7) % q;
-  uint32_t* o = out + (cz * M + m) * R + r0 + rb;
-#pragma unroll
-  for (int rr = 0; rr < RT; ++rr) {
-    uint64_t sum = 0;
-#pragma unroll
-    for (int s = 0; s < kWeights; ++s)
-      sum += static_cast<uint64_t>(static_cast<uint32_t>(acc[s][rr])) * wpow[s];
-    o[rr] = static_cast<uint32_t>(sum % q);
-  }
+  scan_common::recombine_store<RT>(acc, q, out + (cz * M + m) * R + r0 + rb);
 }
 
 template <int RT>

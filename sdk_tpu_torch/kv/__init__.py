@@ -1,1 +1,2 @@
-"""Device ingest of the port (ports sdk_tpu.kv.ingest)."""
+"""Key-value plane of the port (key_value, write: copied from sdk_tpu.kv)
+and its device ingest (ingest: ports sdk_tpu.kv.ingest)."""

@@ -17,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdk_tpu.arith import log2_ceil
-from sdk_tpu.params import Params, Q2_VALUES
+from ..arith import log2_ceil
+from ..params import Params, Q2_VALUES
 
 from .. import _build
 

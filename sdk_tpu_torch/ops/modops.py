@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdk_tpu.params import Params
+from ..params import Params
 
 
 def shoup_companion(w: int, q: int) -> int:

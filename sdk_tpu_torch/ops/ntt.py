@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdk_tpu.params import Params
+from ..params import Params
 
 from .. import _build
 from .modops import moduli_column, u32_bits

@@ -1,14 +1,15 @@
 """Spiral server engine on PyTorch: device state and the query pipeline.
 
-Ports sdk_tpu/ops/server_jax.py (dense, single-device). Every stage of a
-read runs on the engine's device: expansion -> first-dim scan -> fold ->
-pack -> encode; only the wire words come back to the host. Reference
-pipeline: lib/server/src/server.rs:17-99, lib/spiral-rs/src/server.rs
-:650-741.
+Ports sdk_tpu/ops/server_jax.py (single device). Every stage of a read
+runs on the engine's device: expansion (dense, or compacted sparse once a
+populated set is installed) -> first-dim scan (dense or compact index) ->
+fold -> pack -> encode; only the wire words come back to the host.
+Reference pipeline: lib/server/src/server.rs:17-99,
+lib/spiral-rs/src/server.rs:650-741.
 
 Not ported yet (each raises NotImplementedError; see ROADMAP.md Queue 1):
-sharded serving (a mesh), the compact index, compacted sparse expansion,
-direct-upload queries and the CLIENT_TEST mid-pipeline decryption hook.
+sharded serving (a mesh), direct-upload queries and the CLIENT_TEST
+mid-pipeline decryption hook.
 """
 
 from __future__ import annotations
@@ -16,11 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sdk_tpu import poly as hpoly
-from sdk_tpu.client import PublicParameters, Query
-from sdk_tpu.debug_hooks import client_test_active
-from sdk_tpu.params import Params
-from sdk_tpu.telemetry import GLOBAL_TIMERS
+from .. import poly as hpoly
+from ..client import PublicParameters, Query
+from ..debug_hooks import client_test_active
+from ..params import Params
+from ..telemetry import GLOBAL_TIMERS
 
 from ..convert import db_from_host_tensor
 from . import spiral as sj
@@ -37,11 +38,6 @@ def db_tensor_to_device(params: Params, db_host: np.ndarray,
     The limbs are split on the host, so the device holds only the int8
     index."""
     return db_from_host_tensor(params, db_host).to(device)
-
-
-def db_zeros_device(params: Params, device) -> torch.Tensor:
-    """Empty dense DB (see spiral.db_shape)."""
-    return torch.zeros(sj.db_shape(params), dtype=torch.int8, device=device)
 
 
 def index_hbm_bytes(params: Params) -> int:
@@ -87,7 +83,7 @@ def pp_to_device(params: Params, pp: PublicParameters, device) -> dict:
 class SpiralServerTorch:
     """Device-resident Spiral server for one parameter set on one device."""
 
-    def __init__(self, params: Params, device, mesh=None):
+    def __init__(self, params: Params, device="cuda", mesh=None):
         if mesh is not None:
             raise NotImplementedError(f"sharded serving is {_NOT_PORTED}")
         if not params.expand_queries:
@@ -98,13 +94,26 @@ class SpiralServerTorch:
         g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
         self.gadget_ntt = u32_bits(g, self.device)
         self.encode_plan = ResponseEncodePlan(params, self.device)
-        self.db: torch.Tensor | None = None
+        self.db: torch.Tensor | sj.CompactDb | None = None
+        self._splan: sj.SparseExpansionPlan | None = None
 
     # -- state --
 
-    def set_db(self, db: torch.Tensor) -> None:
-        """Install a dense DB tensor (spiral.db_shape, int8)."""
-        if tuple(db.shape) != sj.db_shape(self.params) or db.dtype != torch.int8:
+    def set_db(self, db) -> None:
+        """Install a dense DB tensor (spiral.db_shape, int8) or a
+        spiral.CompactDb."""
+        params = self.params
+        if isinstance(db, sj.CompactDb):
+            cap = db.cap_bin
+            if (tuple(db.planes.shape) != sj.compact_shape(params, cap)
+                    or db.planes.dtype != torch.int8
+                    or db.idx_j.dtype != torch.int32):
+                raise ValueError(f"bad compact DB {db.planes.dtype} "
+                                 f"{tuple(db.planes.shape)}")
+            self.db = sj.CompactDb(db.planes.to(self.device),
+                                   db.idx_j.to(self.device))
+            return
+        if tuple(db.shape) != sj.db_shape(params) or db.dtype != torch.int8:
             raise ValueError(f"bad DB tensor {db.dtype} {tuple(db.shape)}")
         self.db = db.to(self.device)
 
@@ -112,7 +121,20 @@ class SpiralServerTorch:
         self.set_db(db_tensor_to_device(self.params, db_host, self.device))
 
     def set_populated_dim0(self, populated) -> None:
-        raise NotImplementedError(f"sparse query expansion is {_NOT_PORTED}")
+        """Enable compacted sparse query expansion: only the ciphertexts
+        whose first-dim indices are in ``populated`` are expanded (see
+        spiral.SparseExpansionPlan). None, an empty set or the full set
+        restore dense expansion (server_jax.py:236-255)."""
+        params = self.params
+        if populated is None:
+            self._splan = None
+            return
+        pop = sorted({int(i) for i in populated})
+        if not pop or len(pop) == 1 << params.db_dim_1:
+            self._splan = None
+            return
+        self._splan = sj.SparseExpansionPlan(
+            params, pop, params.t_gsw * params.db_dim_2, self.device)
 
     def _pp_dev(self, pp) -> dict:
         return pp if isinstance(pp, dict) else pp_to_device(self.params, pp,
@@ -127,20 +149,34 @@ class SpiralServerTorch:
         ct = torch.from_numpy(query.ct.astype(np.int64)).to(self.device)
         ct0 = sj.to_ntt(params, ct)                       # (2, 1, crt, n)
         right = params.t_gsw * params.db_dim_2
-        cts = sj.coefficient_expansion(params, self.plan, ct0,
-                                       pp_dev["v_exp_left"],
-                                       pp_dev["v_exp_right"], right)
         dim0 = 1 << params.db_dim_1
-        if params.db_dim_2 > 0:
-            v_reg = cts[0::2][:dim0]
-            v_folding = sj.regev_to_gsw(params, cts[1::2][:right],
-                                        pp_dev["v_conversion"])
+        if self._splan is None:
+            cts = sj.coefficient_expansion(params, self.plan, ct0,
+                                           pp_dev["v_exp_left"],
+                                           pp_dev["v_exp_right"], right)
+            stride = 2 if params.db_dim_2 > 0 else 1
+            v_reg = cts[0::stride][:dim0]
+            v_gsw = cts[1::2][:right]
+            q_arr = v_reg[:, :, 0].permute(2, 3, 0, 1).contiguous()
         else:
-            v_reg = cts[:dim0]
+            # the Regev leaves land at their dim0 columns of a zero query;
+            # the unpopulated columns meet only zero DB rows
+            # (server_jax.py:279-302)
+            splan = self._splan
+            leaves = sj.coefficient_expansion_sparse(
+                params, self.plan, splan, ct0, pp_dev["v_exp_left"],
+                pp_dev["v_exp_right"])
+            v_reg = leaves.index_select(0, splan.even_leaf_pos)
+            q_arr = torch.zeros((params.crt_count, params.poly_len, dim0, 2),
+                                dtype=torch.int32, device=self.device)
+            q_arr[:, :, splan.even_dim0_idx] = v_reg[:, :, 0].permute(2, 3, 0, 1)
+            v_gsw = leaves.index_select(0, splan.odd_leaf_pos)
+        if params.db_dim_2 > 0:
+            v_folding = sj.regev_to_gsw(params, v_gsw, pp_dev["v_conversion"])
+        else:
             v_folding = torch.zeros((0, 2, 2 * params.t_gsw, params.crt_count,
                                      params.poly_len), dtype=torch.int32,
                                     device=self.device)
-        q_arr = v_reg[:, :, 0].permute(2, 3, 0, 1).contiguous()
         return q_arr, v_folding
 
     def _fold(self, inter: torch.Tensor, v_folding: torch.Tensor):

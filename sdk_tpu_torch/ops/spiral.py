@@ -1,9 +1,13 @@
-"""Spiral server stages on PyTorch tensors (dense paths).
+"""Spiral server stages on PyTorch tensors.
 
 Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
 
-  expansion : automorphism-based coefficient expansion + Regev->GSW
-  scan      : encrypted-query x DB product (kernel group C, csrc/scan.cu)
+  expansion : automorphism-based coefficient expansion (dense, and the
+              compacted sparse schedule) + Regev->GSW; the elementwise body
+              of a round is kernel E' (csrc/expand_round.cu)
+  scan      : encrypted-query x DB product over the dense index (kernel C,
+              csrc/scan.cu) or the compact index (kernel I,
+              csrc/scan_compact.cu)
   fold      : GSW external products over db_dim_2 rounds
   pack      : recombine n*n scalar cts into one matrix ct (versions 0, 1)
 
@@ -11,17 +15,21 @@ Representation (see modops): NTT matrices are int32 ``(rows, cols, crt, n)``
 residues; raw matrices are int64 ``(rows, cols, n)`` values mod Q. The dense
 DB is one int8 tensor of 7-bit limbs laid out for the scan kernel's loads:
 ``(crt, z, L, dim0/4, instances, trials, num_per, 4)`` where the last axis
-holds columns 4*jw .. 4*jw+3 (see csrc/scan.cu). ``matmul_mod`` is kernel
-group B (csrc/matmul_mod.cu); the NTTs are kernel group A (ops/ntt.py).
+holds columns 4*jw .. 4*jw+3 (see csrc/scan.cu). The compact DB
+(:class:`CompactDb`) has the same layout with a per-bin slot axis of
+``cap_bin`` in place of dim0. ``matmul_mod`` is kernel group B
+(csrc/matmul_mod.cu); the NTTs are kernel group A (ops/ntt.py).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from sdk_tpu import poly as hpoly
-from sdk_tpu.params import Params
+from .. import poly as hpoly
+from ..params import Params
 
 from .. import _build
 from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
@@ -207,17 +215,19 @@ def db_limbs(params: Params, vals: torch.Tensor) -> torch.Tensor:
     return limbs.permute(0, 1, 2, 6, 3, 4, 5, 7).contiguous()
 
 
-def db_write_items(params: Params, db: torch.Tensor, items: list,
+def db_write_items(params: Params, db: torch.Tensor, bins, cols,
                    vals: torch.Tensor) -> None:
-    """Write item residues into the dense DB in place: vals (K, instances *
-    trials, crt, z) int32 NTT residues of items[0..K) (distinct indices,
-    item = dim0 index * num_per + num_per index)."""
+    """Write item residues into a dense or compact planes tensor in place:
+    vals (K, instances * trials, crt, z) int32 NTT residues of K items, item
+    k at num_per bin bins[k] and column cols[k] (its dim0 index in the dense
+    DB, its slot in the compact one); the (bin, column) pairs are
+    distinct."""
     num_per = 1 << params.db_dim_2
     view = db.view(db.shape[:4] + (-1, num_per, 4))  # (.., jw, it, npr, 4)
     limbs = torch.stack([((vals >> (LIMB_BITS * k)) & 127).to(torch.int8)
                          for k in range(NUM_LIMBS)], dim=-1)
-    ii = torch.tensor([i % num_per for i in items], device=db.device)
-    jj = torch.tensor([i // num_per for i in items], device=db.device)
+    ii = torch.as_tensor(bins, dtype=torch.int64).to(db.device)
+    jj = torch.as_tensor(cols, dtype=torch.int64).to(db.device)
     # the advanced indices (dims 3, 5, 6) are separated by a slice, so the
     # indexed shape is (K, crt, z, L, it)
     view[:, :, :, jj // 4, :, ii, jj % 4] = limbs.permute(0, 2, 3, 4, 1)
@@ -247,6 +257,22 @@ def firstdim_multiply_plain(params: Params, db: torch.Tensor,
     return acc.to(torch.int32).reshape(crt, z, inst, trials, npr, -1)
 
 
+def _column_blocks(R: int, smem_per_column: int,
+                   pad: int = 0) -> tuple[int, int]:
+    """(rt, rb) of the scan kernels: rt columns per thread (2, 4 or 8) and
+    rb per block, the largest multiple of rt that divides R, is at most 32
+    and keeps the block's query limbs (rb + pad columns of them) within the
+    shared memory."""
+    rt = 8 if R % 8 == 0 else 4 if R % 4 == 0 else 2
+    rb = max((d for d in range(rt, min(R, 32) + 1, rt)
+              if R % d == 0 and smem_per_column * (d + pad) <= 200 * 1024),
+             default=0)
+    if rb == 0:
+        raise ValueError(f"scan: {smem_per_column} B of query limbs per column "
+                         f"leave no shared memory for {rt} columns")
+    return rt, rb
+
+
 def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor):
     crt, z, L, jw, inst, trials, npr, _ = db.shape
     R = q_arr.shape[-1]
@@ -257,14 +283,7 @@ def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor):
                          f"{q_arr.dtype} {tuple(q_arr.shape)}")
     q_arr = q_arr.contiguous()
     _build.require_cuda(db, q_arr)
-    rt = 8 if R % 8 == 0 else 4 if R % 4 == 0 else 2
-    # columns per block: the largest multiple of rt that divides R, is at
-    # most 32 and keeps the block's query limbs within the shared memory
-    rb = max((d for d in range(rt, min(R, 32) + 1, rt)
-              if R % d == 0 and 16 * jw * d <= 200 * 1024), default=0)
-    if rb == 0:
-        raise ValueError(f"scan: dim0={4 * jw} leaves no shared memory for "
-                         f"{rt} query columns")
+    rt, rb = _column_blocks(R, 16 * jw)
     M = inst * trials * npr
     out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
                       device=db.device)
@@ -275,18 +294,111 @@ def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor):
     return out
 
 
-def firstdim_multiply(params: Params, db: torch.Tensor,
-                      q_arr: torch.Tensor) -> torch.Tensor:
+def firstdim_multiply(params: Params, db, q_arr: torch.Tensor) -> torch.Tensor:
     """Encrypted-query x DB product (reference compute/dot_product.rs).
 
-    db: the dense int8 DB tensor (db_shape). q_arr: int32 (crt, z, dim0, R)
-    residues (R = 2 rows x batched queries, column 2*i + r).
-    Returns int32 (crt, z, inst, trials, num_per, R), exact mod q_c."""
-    if db.device.type == "cuda":
-        return _scan_launch(params, db, q_arr)
-    if db.device.type == "cpu":
-        return firstdim_multiply_plain(params, db, q_arr)
-    raise ValueError(f"unsupported device {db.device}")
+    db: the dense int8 DB tensor (db_shape), or a :class:`CompactDb`.
+    q_arr: int32 (crt, z, dim0, R) residues (R = 2 rows x batched queries,
+    column 2*i + r). Returns int32 (crt, z, inst, trials, num_per, R),
+    exact mod q_c; the compact index gives the dense result of its
+    equivalent dense index."""
+    compact = isinstance(db, CompactDb)
+    device = (db.planes if compact else db).device
+    if device.type == "cuda":
+        return (_scan_compact_launch if compact else _scan_launch)(
+            params, db, q_arr)
+    if device.type == "cpu":
+        return (firstdim_multiply_compact_plain if compact
+                else firstdim_multiply_plain)(params, db, q_arr)
+    raise ValueError(f"unsupported device {device}")
+
+
+# ---------------------------------------------------------------------------
+# compact index: kernel I (reference lib/server/src/db/sparse_db.rs:1-48)
+# ---------------------------------------------------------------------------
+
+class CompactDb(NamedTuple):
+    """O(populated) DB: per num_per bin, up to cap_bin populated first-dim
+    columns (ports spiral_jax.CompactDb, one layout).
+
+    planes: int8 (crt, z, L, cap_bin/4, instances, trials, num_per, 4), the
+            dense layout with the slot axis in place of dim0, so that the
+            compact scan streams each row's slots with the dense scan's
+            coalesced 4-byte loads and one word is one __dp4a operand;
+            zero limbs where a slot is unoccupied (they add exactly zero).
+    idx_j:  int32 (num_per, cap_bin), each slot's dim0 coordinate (0 where
+            unoccupied). cap_bin is a multiple of 4.
+    """
+
+    planes: torch.Tensor
+    idx_j: torch.Tensor
+
+    @property
+    def cap_bin(self) -> int:
+        return self.idx_j.shape[1]
+
+
+def compact_shape(params: Params, cap_bin: int) -> tuple:
+    """Shape of the compact planes (db_shape with cap_bin columns)."""
+    if cap_bin % 4:
+        raise ValueError(f"cap_bin {cap_bin} is not a multiple of 4")
+    return (params.crt_count, params.poly_len, NUM_LIMBS, cap_bin // 4,
+            params.instances, params.n * params.n, 1 << params.db_dim_2, 4)
+
+
+def compact_db_empty(params: Params, device, cap_bin: int = 8) -> CompactDb:
+    """Empty compact DB: O(num_per * cap_bin) device bytes instead of the
+    dense O(num_per * dim0)."""
+    return CompactDb(
+        torch.zeros(compact_shape(params, cap_bin), dtype=torch.int8,
+                    device=device),
+        torch.zeros((1 << params.db_dim_2, cap_bin), dtype=torch.int32,
+                    device=device))
+
+
+def firstdim_multiply_compact_plain(params: Params, db: CompactDb,
+                                    q_arr: torch.Tensor) -> torch.Tensor:
+    """Exact int64 sums over each bin's slots of DB value x the gathered
+    query column, in chunks of 64 slots, reduced per chunk."""
+    vals = db_values(db.planes)          # (crt, z, inst, trials, npr, cap)
+    crt, z, inst, trials, npr, cap = vals.shape
+    vals = vals.reshape(crt, z, inst * trials, npr, cap)
+    idx = db.idx_j.to(torch.int64)
+    qv = q_arr.to(torch.int64)           # (crt, z, dim0, R)
+    q = moduli_column(params, qv.device, 4)
+    acc = None
+    for s0 in range(0, cap, _SCAN_CHUNK):
+        s1 = min(cap, s0 + _SCAN_CHUNK)
+        qg = qv[:, :, idx[:, s0:s1]]     # (crt, z, npr, cs, R)
+        part = (vals[..., s0:s1, None] * qg[:, :, None]).sum(-2) % q
+        acc = part if acc is None else (acc + part) % q
+    return acc.to(torch.int32).reshape(crt, z, inst, trials, npr, -1)
+
+
+def _scan_compact_launch(params: Params, db: CompactDb, q_arr: torch.Tensor):
+    planes, idx_j = db
+    crt, z, L, cw, inst, trials, npr, _ = planes.shape
+    dim0, R = q_arr.shape[-2:]
+    if (planes.dtype != torch.int8 or idx_j.dtype != torch.int32
+            or tuple(idx_j.shape) != (npr, 4 * cw) or q_arr.dtype != torch.int32
+            or q_arr.shape[:2] != (crt, z) or crt != 2 or R % 2
+            or 4 * cw > 1 << 15):     # int32 weight sums: 4*127^2*cap < 2^31
+        raise ValueError(f"scan_compact: planes {planes.dtype} "
+                         f"{tuple(planes.shape)}, idx_j {idx_j.dtype} "
+                         f"{tuple(idx_j.shape)}, query {q_arr.dtype} "
+                         f"{tuple(q_arr.shape)}")
+    q_arr = q_arr.contiguous()
+    _build.require_cuda(planes, idx_j, q_arr)
+    rt, rb = _column_blocks(R, 4 * dim0, pad=1)   # rows padded by a word
+    M = inst * trials * npr
+    out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
+                      device=planes.device)
+    q0, q1 = params.moduli
+    _build.launch("scan_compact", "sdk_scan_compact", planes.device,
+                  planes.data_ptr(), idx_j.data_ptr(), q_arr.data_ptr(),
+                  out.data_ptr(), z, M, npr, cw, dim0, R, rb, rt, q0, q1,
+                  _build.stream_of(planes))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +407,8 @@ def firstdim_multiply(params: Params, db: torch.Tensor,
 
 class ExpansionPlan:
     """Static data for one Params on one device: automorphism tables per
-    round and the NTT'd -x^(2048-2^r) scalars."""
+    round (int32 gather permutation, bool negation mask) and the NTT'd
+    -x^(2048-2^r) scalars."""
 
     def __init__(self, params: Params, device):
         self.params = params
@@ -304,25 +417,76 @@ class ExpansionPlan:
         self.auto = []
         for r in range(params.poly_len_log2):
             perm, neg = automorph_tables(params, (params.poly_len >> r) + 1)
-            self.auto.append((torch.from_numpy(perm).to(device),
+            self.auto.append((torch.from_numpy(perm.astype(np.int32)).to(device),
                               torch.from_numpy(neg).to(device)))
 
 
+def expand_round_plain(params: Params, x: torch.Tensor, t_tables,
+                       t_exp: int) -> torch.Tensor:
+    """x: int32 (B, 2, 1, crt, n) inverse-NTT residues of B cts. Returns the
+    int32 (B*t_exp + B, crt, n) input of the round's forward NTT: the row-0
+    gadget digits of the automorphed cts, copied into every channel
+    unreduced ((b, k) polys, b major), then row 1 reduced per channel."""
+    perm, neg = t_tables
+    raw = automorph_pair(params, crt_compose(params, x), perm, neg)
+    crt, n = params.crt_count, params.poly_len
+    digits = gadget_digits(params, raw[:, 0:1], t_exp, 1).to(torch.int32)
+    digits = digits.unsqueeze(-2).expand(digits.shape[:-1] + (crt, n))
+    row1 = reduce_channels(params, raw[:, 1:2])
+    return torch.cat([digits.reshape(-1, crt, n), row1.reshape(-1, crt, n)])
+
+
+def _expand_round_launch(params: Params, x: torch.Tensor, t_tables,
+                         t_exp: int) -> torch.Tensor:
+    perm, neg = t_tables
+    B = x.shape[0]
+    crt, n = params.crt_count, params.poly_len
+    if (x.dtype != torch.int32 or tuple(x.shape) != (B, 2, 1, crt, n)
+            or crt != 2 or perm.dtype != torch.int32 or neg.dtype != torch.bool
+            or perm.shape != (n,) or neg.shape != (n,)):
+        raise ValueError(f"expand_round: x {x.dtype} {tuple(x.shape)}, perm "
+                         f"{perm.dtype} {tuple(perm.shape)}, neg {neg.dtype}")
+    x = x.contiguous()
+    _build.require_cuda(x, perm, neg)
+    out = torch.empty((B * t_exp + B, crt, n), dtype=torch.int32,
+                      device=x.device)
+    q0, q1 = params.moduli
+    _build.launch("expand_round", "sdk_expand_round", x.device, x.data_ptr(),
+                  perm.data_ptr(), neg.data_ptr(), out.data_ptr(), B,
+                  params.poly_len_log2, t_exp, _get_bits_per(params, t_exp),
+                  params.modulus, q0, q1, params.inv_q0_mod_q1,
+                  _build.stream_of(x))
+    return out
+
+
+def expand_round(params: Params, x: torch.Tensor, t_tables,
+                 t_exp: int) -> torch.Tensor:
+    """Kernel E' (csrc/expand_round.cu) on a CUDA tensor, its plain version
+    (expand_round_plain, same contract) on a CPU tensor."""
+    if x.device.type == "cuda":
+        return _expand_round_launch(params, x, t_tables, t_exp)
+    if x.device.type == "cpu":
+        return expand_round_plain(params, x, t_tables, t_exp)
+    raise ValueError(f"unsupported device {x.device}")
+
+
 def _expansion_round_update(params: Params, cts: torch.Tensor, w, t_tables,
-                            mask: np.ndarray) -> torch.Tensor:
+                            mask: np.ndarray | None = None) -> torch.Tensor:
     """One expansion butterfly on the cts (B, 2, 1, crt, n) whose mask entry
-    is True; the others keep their value. Only selected cts are computed."""
-    sel = None if mask.all() else torch.from_numpy(
+    is True (all when mask is None); the others keep their value. Only
+    selected cts are computed: inverse NTT (A'), E', one forward NTT of the
+    digits and row 1 (A), the key product (B), two additions."""
+    sel = None if mask is None or mask.all() else torch.from_numpy(
         np.flatnonzero(mask)).to(cts.device)
     sub = cts if sel is None else cts.index_select(0, sel)
-    perm, neg = t_tables
-    raw = automorph_pair(params, from_ntt(params, sub), perm, neg)
     t_exp = (w[0] if isinstance(w, tuple) else w).shape[1]
-    ginv = gadget_digits(params, raw[:, 0:1], t_exp, 1)   # (B, t_exp, 1, n)
-    w_g = matmul_mod(params, w, to_ntt_no_reduce(params, ginv))
-    res = add_mod(params, sub, w_g)
-    row1 = add_mod(params, res[:, 1:2], to_ntt(params, raw[:, 1:2]))
-    res = torch.cat([res[:, 0:1], row1], dim=1)
+    B = sub.shape[0]
+    fwd = ntt_forward(params, expand_round(params, ntt_inverse(params, sub),
+                                           t_tables, t_exp))
+    ginv_ntt = fwd[:B * t_exp].view(B, t_exp, 1, *fwd.shape[1:])
+    auto1 = fwd[B * t_exp:].view(B, 1, 1, *fwd.shape[1:])
+    res = add_mod(params, sub, matmul_mod(params, w, ginv_ntt))
+    res = torch.cat([res[:, 0:1], add_mod(params, res[:, 1:2], auto1)], dim=1)
     if sel is None:
         return res
     return cts.index_copy(0, sel, res)
@@ -359,6 +523,117 @@ def coefficient_expansion(params: Params, plan: ExpansionPlan,
                 odds = _expansion_round_update(params, odds, v_w_right[r],
                                                t_tables, mask[1::2])
             cts = torch.stack([evens, odds], dim=1).reshape(cts.shape)
+    return cts
+
+
+class SparseExpansionPlan:
+    """Compacted expansion schedule for a populated first-dim set (ports
+    spiral_jax.SparseExpansionPlan; reference per-round skip sets,
+    query_expansion.rs:213-248).
+
+    Round r processes only the ancestors of needed leaves: the Regev leaves
+    {stride*i : i populated} (stride 2 with further dims, else 1) and the
+    first max_bits_to_gen_right odd (GSW) leaves. Each round gathers its
+    live entries from the previous round's (parent_pos), negates those in
+    the upper half (neg_mask), updates the even group with the left key and
+    the odd group with the right key (left iff r > 0 and the entry is even,
+    query_expansion.rs:85-99), and gathers the round's result (src_sel) from
+    [even updates, odd updates, carried bases].
+
+    The JAX plan pads every index array to a power of two so that jit
+    retraces less, and pads the leaf scatter with out-of-bounds indices that
+    jnp drops. PyTorch runs eagerly: here every array has its exact size and
+    nothing is padded (index_put raises on an out-of-bounds index), which
+    leaves every output word unchanged."""
+
+    def __init__(self, params: Params, populated_dim0,
+                 max_bits_to_gen_right: int, device="cpu"):
+        g = params.g()
+        stop_round = params.stop_round() if params.db_dim_2 > 0 else 0
+        dim0 = 1 << params.db_dim_1
+        pop = sorted({int(i) for i in populated_dim0})
+        if not pop or pop[0] < 0 or pop[-1] >= dim0:
+            raise ValueError(f"populated dim0 set must be a non-empty subset "
+                             f"of [0, {dim0})")
+        self.params = params
+        self.populated = pop
+
+        # needed[r]: entries (indices in [0, 2^(r+1))) whose value after
+        # round r feeds a used leaf
+        stride = 2 if params.db_dim_2 > 0 else 1
+        needed = [set() for _ in range(g)]
+        needed[g - 1].update(stride * i for i in pop)
+        if params.db_dim_2 > 0:
+            needed[g - 1].update(2 * i + 1 for i in range(max_bits_to_gen_right))
+        for r in range(g - 2, -1, -1):
+            sz = 1 << (r + 1)
+            needed[r] = {e for e in range(sz)
+                         if e in needed[r + 1] or e + sz in needed[r + 1]}
+
+        def update_ok(r: int, e: int) -> bool:
+            if stop_round > 0 and r > stop_round and e % 2 == 1:
+                return False
+            if (stop_round > 0 and r == stop_round and e % 2 == 1
+                    and e // 2 >= max_bits_to_gen_right):
+                return False
+            return True
+
+        def idx(values) -> torch.Tensor:
+            return torch.tensor(list(values), dtype=torch.int64, device=device)
+
+        self.rounds = []
+        live_prev = [0]
+        for r in range(g):
+            live = sorted(needed[r])
+            pos_prev = {e: k for k, e in enumerate(live_prev)}
+            ev = [k for k, e in enumerate(live)
+                  if update_ok(r, e) and r > 0 and e % 2 == 0]
+            od = [k for k, e in enumerate(live)
+                  if update_ok(r, e) and not (r > 0 and e % 2 == 0)]
+            src_sel = list(range(len(ev) + len(od), len(ev) + len(od)
+                                 + len(live)))   # default: the carried base
+            for j, k in enumerate(ev):
+                src_sel[k] = j
+            for j, k in enumerate(od):
+                src_sel[k] = len(ev) + j
+            self.rounds.append(dict(
+                parent_pos=idx(pos_prev[e % (1 << r)] for e in live),
+                neg_mask=torch.tensor([e >= (1 << r) for e in live],
+                                      device=device),
+                even_sel=idx(ev), odd_sel=idx(od), src_sel=idx(src_sel)))
+            live_prev = live
+
+        leaf_pos = {e: k for k, e in enumerate(live_prev)}
+        self.even_leaf_pos = idx(leaf_pos[stride * i] for i in pop)
+        self.even_dim0_idx = idx(pop)
+        self.odd_leaf_pos = idx(leaf_pos[2 * i + 1]
+                                for i in range(max_bits_to_gen_right)
+                                if params.db_dim_2 > 0)
+
+
+def coefficient_expansion_sparse(params: Params, plan: ExpansionPlan,
+                                 splan: SparseExpansionPlan, ct0: torch.Tensor,
+                                 v_w_left, v_w_right) -> torch.Tensor:
+    """Compacted expansion. ct0: (2, 1, crt, n). Returns the final live
+    entries (len(live), 2, 1, crt, n); splan.even_leaf_pos and
+    splan.odd_leaf_pos index the Regev and GSW leaves in it."""
+    cts = ct0[None]
+    for r, rd in enumerate(splan.rounds):
+        t_tables = plan.auto[r]
+        base = cts.index_select(0, rd["parent_pos"])
+        neg = scalar_mulmod(params, plan.neg1[r], base)
+        base = torch.where(rd["neg_mask"].reshape(-1, 1, 1, 1, 1), neg, base)
+        pieces = []
+        if rd["even_sel"].numel():
+            pieces.append(_expansion_round_update(
+                params, base.index_select(0, rd["even_sel"]), v_w_left[r],
+                t_tables))
+        if rd["odd_sel"].numel():
+            pieces.append(_expansion_round_update(
+                params, base.index_select(0, rd["odd_sel"]), v_w_right[r],
+                t_tables))
+        pieces.append(base)
+        cts = torch.cat(pieces).index_select(0, rd["src_sel"])
     return cts
 
 

@@ -1,31 +1,35 @@
-"""Server state machine for one bucket: rows, public params and the dense
+"""Server state machine for one bucket: rows, public params and the
 encrypted index on the device.
 
 Ports sdk_tpu/server/kv_server.py (reference bin/server.rs:22-29 and its
-routes' semantics) onto SpiralServerTorch. The index is dense from
-construction; the compact index, sharding, checkpointing and the key
-storage policies (bloom filter, key list) are not ported yet (ROADMAP.md,
-Queue 1).
+routes' semantics) onto SpiralServerTorch, with the JAX bucket's index
+lifecycle: a new bucket starts in the O(populated) compact index, expands
+queries sparsely while few first-dim rows are populated, and migrates to
+the dense index once more than dense_migrate_fill of the items are
+populated. Sharding, checkpointing, clear and the key storage policies
+(bloom filter, key list) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import logging
 import threading
 import time
 import uuid as uuidlib
 
 import torch
 
-from sdk_tpu.client import Client, PublicParameters, Query
-from sdk_tpu.kv.key_value import row_from_key
-from sdk_tpu.kv.write import compress_row, unwrap_kv_pairs, update_row
-from sdk_tpu.params import Params, params_to_json_obj
+from ..client import Client, PublicParameters, Query
+from ..kv.key_value import row_from_key
+from ..kv.write import compress_row, unwrap_kv_pairs, update_row
+from ..params import Params, params_to_json_obj
 
-from ..kv.ingest import DbUpdateBuffer
-from ..ops.server import (SpiralServerTorch, db_zeros_device, index_hbm_bytes,
-                          pp_to_device, serving_working_set_bytes)
+from ..kv.ingest import DbUpdateBuffer, compact_to_dense
+from ..ops.server import (SpiralServerTorch, index_hbm_bytes, pp_to_device,
+                          serving_working_set_bytes)
+from ..ops.spiral import CompactDb, compact_db_empty
 
 UUID_V4_STR_BYTES = 36
 # batch size the capacity guard sizes the serving working set for
@@ -38,10 +42,10 @@ class BucketCapacityError(RuntimeError):
 
 
 class SpiralKvServerTorch:
-    """One bucket: Spiral params + rows + dense encrypted index on
-    ``device``."""
+    """One bucket: Spiral params + rows + encrypted index on ``device``."""
 
-    def __init__(self, params: Params, device, params_json: str | None = None,
+    def __init__(self, params: Params, device="cuda",
+                 params_json: str | None = None,
                  hbm_budget_bytes: int | None = None):
         self.params = params
         self.device = torch.device(device)
@@ -56,9 +60,24 @@ class SpiralKvServerTorch:
         # free memory (torch.cuda.mem_get_info); no guard on the CPU
         self.hbm_budget_bytes = hbm_budget_bytes
         self.engine = SpiralServerTorch(params, self.device)
-        self._check_capacity()
-        self.engine.set_db(db_zeros_device(params, self.device))
+        # The bucket starts in the O(populated) CompactDb layout (the
+        # reference SparseDb's memory model, db/sparse_db.rs:1-48) and
+        # migrates to the dense index once more than dense_migrate_fill of
+        # the items are populated. The thresholds are the JAX bucket's
+        # (kv_server.py:71-110). Neither changes a response (a compact
+        # index and sparse expansion give the dense path's bytes); they
+        # choose the device work and memory, and their speed on this card
+        # is not claimed.
+        self.dense_migrate_fill = 0.125
+        self._migration_refused = False
+        self.engine.set_db(compact_db_empty(params, self.device))
         self._updates = DbUpdateBuffer(params, self.device)
+        # populated item indices (an over-approximation of the nonzero DB
+        # rows) drive the compacted sparse query expansion while at most
+        # sparse_expansion_max_fill of the first-dim rows are populated
+        self._populated_items: set[int] = set()
+        self._pop_dirty = False
+        self.sparse_expansion_max_fill = 0.25
 
     # --- capacity guard ---
 
@@ -118,6 +137,9 @@ class SpiralKvServerTorch:
         # the NTT encode runs on the device in batches at flush time
         with self.lock:
             self._updates.upsert_raw(db_idx, data)
+            if db_idx not in self._populated_items:
+                self._populated_items.add(db_idx)
+                self._pop_dirty = True
 
     def update_item(self, body: bytes) -> None:
         """body = u32 idx BE || chunk bytes (loading.rs:301-316)."""
@@ -144,7 +166,36 @@ class SpiralKvServerTorch:
         """Write every pending row into the device index (reads flush
         first; bulk loaders may call this between batches of rows)."""
         with self.lock:
-            self._updates.flush(self.engine.db)
+            self._flush()
+
+    def _flush(self) -> None:
+        """kv_server.py:225-265, step for step: decide the migration on the
+        populated count (pending rows included) before the pending rows are
+        written, write them, then resolve the sparse-expansion set."""
+        params = self.params
+        if (isinstance(self.engine.db, CompactDb)
+                and not self._migration_refused
+                and len(self._populated_items)
+                > self.dense_migrate_fill * params.num_items()):
+            try:
+                self._check_capacity()
+            except BucketCapacityError as e:
+                # the compact index serves any fill, so a bucket that cannot
+                # afford the dense one stays compact and keeps serving: the
+                # flush runs on the read path, which must not raise
+                logging.getLogger(__name__).warning(
+                    "dense migration refused; serving stays compact: %s", e)
+                self._migration_refused = True
+            else:
+                self.engine.set_db(compact_to_dense(params, self.engine.db))
+                self._updates.slots.clear()
+        self.engine.db = self._updates.flush(self.engine.db)
+        if self._pop_dirty:
+            dim0 = 1 << params.db_dim_1
+            dim0_set = {i >> params.db_dim_2 for i in self._populated_items}
+            use = 0 < len(dim0_set) <= int(dim0 * self.sparse_expansion_max_fill)
+            self.engine.set_populated_dim0(dim0_set if use else None)
+            self._pop_dirty = False
 
     # --- setup / read ---
 
@@ -177,7 +228,7 @@ class SpiralKvServerTorch:
 
     def private_read_one(self, request_bytes: bytes) -> bytes:
         with self.lock:
-            self._updates.flush(self.engine.db)
+            self._flush()
             pp_dev, query = self._parse_request(request_bytes)
             return self.engine.process_query(pp_dev, query)
 
@@ -191,7 +242,7 @@ class SpiralKvServerTorch:
         the lock. A flush between a dispatch and its fetch is safe: it is
         enqueued on the same stream, after the batch's scan."""
         with self.lock:
-            self._updates.flush(self.engine.db)
+            self._flush()
             reqs = [self._parse_request(b) for b in blobs]
             return self.engine.dispatch_queries_batched(reqs)
 
@@ -206,8 +257,9 @@ class SpiralKvServerTorch:
     def warmup(self) -> float:
         """One synthetic protocol round (throwaway client keys -> setup ->
         query for row 0) through the real read path, so that the kernel
-        build and first launches happen before traffic. Returns elapsed
-        seconds."""
+        build and first launches happen before traffic. It runs the index's
+        current state (compact or dense, sparse or dense expansion), so call
+        it after the initial writes. Returns elapsed seconds."""
         t0 = time.monotonic()
         client = Client(self.params)
         pp = client.generate_keys()
@@ -228,4 +280,7 @@ class SpiralKvServerTorch:
             "open_access": True,
             "pir_scheme": json.loads(self.params_json),
             "global_version": self.version,
+            "index_layout": ("compact" if isinstance(self.engine.db, CompactDb)
+                             else "dense"),
+            "sparse_expansion": self.engine._splan is not None,
         }

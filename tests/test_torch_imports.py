@@ -1,6 +1,7 @@
-"""Import hygiene and dispatch of the port: no jax anywhere in
-sdk_tpu_torch or chip_smoke.py, CPU tensors take the plain versions without
-building anything, and chip_smoke.py refuses to report without a card."""
+"""Import hygiene and dispatch of the port: neither jax nor the JAX package
+sdk_tpu anywhere in sdk_tpu_torch or chip_smoke.py, CPU tensors take the
+plain versions without building anything, the entry points ask for the card
+by default, and chip_smoke.py refuses to report without a card."""
 
 import os
 import pkgutil
@@ -15,8 +16,8 @@ import pytest
 import torch
 
 import sdk_tpu_torch
-from sdk_tpu.params import get_fast_expansion_testing_params
 from sdk_tpu_torch import _build
+from sdk_tpu_torch.params import get_fast_expansion_testing_params
 
 ROOT = Path(__file__).resolve().parent.parent
 PARAMS = get_fast_expansion_testing_params()
@@ -28,25 +29,53 @@ def port_modules() -> list[str]:
 
 
 def test_every_module_imports_without_jax():
+    """Every port module and chip_smoke.py import with a meta-path finder
+    that refuses jax, jaxlib, sdk_tpu and every sdk_tpu.* module (not
+    sdk_tpu_torch)."""
     mods = port_modules()
     assert "sdk_tpu_torch.server.kv_server" in mods
-    code = ("import sys; sys.modules['jax'] = None\n"
-            "import importlib\n"
-            f"for m in {mods!r}: importlib.import_module(m)\n"
+    code = ("import importlib, sys\n"
+            "class Refuse:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'sdk_tpu'):\n"
+            "            raise ImportError(f'refused: {name}')\n"
+            "sys.meta_path.insert(0, Refuse())\n"
+            f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib') and sys.modules[m] is not None]\n"
-            "assert not bad, bad\n"
-            "assert not any(m.startswith(('sdk_tpu.ops', 'sdk_tpu.server', "
-            "'sdk_tpu.kv.ingest')) for m in sys.modules), 'jax-side module'\n")
+            "('jax', 'jaxlib', 'sdk_tpu')]\n"
+            "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
 
+def port_sources() -> list[Path]:
+    return list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
 def test_sources_never_import_jax():
-    files = list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    assert not [str(f) for f in files if pat.search(f.read_text())]
+    assert not [str(f) for f in port_sources() if pat.search(f.read_text())]
+
+
+def test_sources_never_import_sdk_tpu():
+    """No import of the JAX package, at any depth of a function."""
+    pat = re.compile(r"^\s*(from|import)\s+sdk_tpu(\.|\s|$)", re.M)
+    assert not [str(f) for f in port_sources() if pat.search(f.read_text())]
+
+
+@pytest.mark.parametrize("entry", ["bucket", "engine"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a device the entry points ask for CUDA: here, where there is
+    none, construction raises instead of falling back to the CPU."""
+    from sdk_tpu_torch.ops.server import SpiralServerTorch
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cls = SpiralKvServerTorch if entry == "bucket" else SpiralServerTorch
+    with pytest.raises((RuntimeError, AssertionError)):
+        cls(PARAMS)
 
 
 def test_cpu_tensors_take_plain_path_without_build(monkeypatch):

@@ -1,6 +1,7 @@
 """The port's bucket server (SpiralKvServerTorch) and device ingest
 (sdk_tpu_torch.kv.ingest), plain versions on the CPU, against the JAX
-ingest and the host-built DB tensor; a written key reads back privately."""
+ingest and the host-built DB tensor; a written key reads back privately.
+The port's Params and client come from the port's own modules."""
 
 import base64
 import bz2
@@ -12,21 +13,28 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from sdk_tpu import params as params_j
 from sdk_tpu import server_host
-from sdk_tpu.client import Client, PublicParameters, Query
 from sdk_tpu.kv import ingest as ingest_jax
-from sdk_tpu.kv.key_value import extract_result, row_from_key
-from sdk_tpu.params import (get_fast_expansion_testing_params,
-                            get_no_expansion_testing_params)
-from sdk_tpu.rng import ChaCha20Rng
 from sdk_tpu_torch import convert
+from sdk_tpu_torch.client import Client, PublicParameters, Query
 from sdk_tpu_torch.kv import ingest
 from sdk_tpu_torch.kv.ingest import DbUpdateBuffer, ingest_items_device
-from sdk_tpu_torch.ops.server import db_zeros_device
+from sdk_tpu_torch.kv.key_value import extract_result, row_from_key
+from sdk_tpu_torch.ops.spiral import CompactDb, db_shape
+from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
+                                  get_no_expansion_testing_params,
+                                  params_to_json_obj)
+from sdk_tpu_torch.rng import ChaCha20Rng
 from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
 
 torch.set_num_threads(1)
 FAST = get_fast_expansion_testing_params()
+
+
+def J(params):
+    """The JAX package's Params of the same JSON as the port's ``params``."""
+    return params_j.params_from_json(json.dumps(params_to_json_obj(params)))
 
 
 def session(params, seed: int):
@@ -70,7 +78,7 @@ def test_ingest_matches_jax(params):
     raw = rng.integers(0, 256, (2, params.instances * params.n * params.n,
                                 params.bytes_per_chunk()), dtype=np.uint8)
     want = np.asarray(jax.jit(lambda rb: ingest_jax.ingest_items_device(
-        params, rb))(jnp.asarray(raw)))
+        J(params), rb))(jnp.asarray(raw)))
     got = ingest_items_device(params, torch.from_numpy(raw)).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int32))
 
@@ -95,10 +103,19 @@ def test_raw_rows_read_back_through_private_read_one():
 
 
 def test_capacity_guard_refuses_before_allocating():
+    """A new bucket starts compact, so the guard runs before the dense
+    index is allocated: at the migration, which a too-small budget refuses
+    (the bucket stays compact)."""
     from sdk_tpu_torch.server.kv_server import BucketCapacityError
 
+    srv = SpiralKvServerTorch(FAST, device="cpu", hbm_budget_bytes=1 << 20)
     with pytest.raises(BucketCapacityError, match="Max bucket"):
-        SpiralKvServerTorch(FAST, device="cpu", hbm_budget_bytes=1 << 20)
+        srv._check_capacity()
+    srv.dense_migrate_fill = 0.0
+    srv.update_item_raw(5, b"\x01" * 64)
+    srv.flush()
+    assert srv._migration_refused
+    assert isinstance(srv.engine.db, CompactDb)
 
 
 def test_flush_matches_host_db(monkeypatch):
@@ -119,8 +136,8 @@ def test_flush_matches_host_db(monkeypatch):
         padded = np.concatenate([data, np.zeros(7, dtype=np.uint8)])
         items[:, :, idx] = padded.reshape(params.instances,
                                           params.n * params.n, pt_len)
-    db = db_zeros_device(params, "cpu")
+    db = torch.zeros(db_shape(params), dtype=torch.int8)
     buf.flush(db)
     want = convert.db_from_host_tensor(
-        params, server_host.build_db_tensor(params, items))
+        params, server_host.build_db_tensor(J(params), items))
     assert torch.equal(db, want)

@@ -3,8 +3,12 @@ against the JAX package's on the same numpy-seeded inputs. Integer
 arithmetic: every comparison is exact (tolerance 0).
 
 The JAX side runs as its own tests run it: jitted on the CPU (conftest.py).
-Small parameter sets keep its compile times short.
+Small parameter sets keep its compile times short. The port's Params come
+from the port's own params module; the JAX side gets the JAX package's
+Params of the same JSON (J).
 """
+
+import json
 
 import numpy as np
 import jax
@@ -16,12 +20,14 @@ from sdk_tpu import ntt_host, poly, server_host
 from sdk_tpu.client import Client
 from sdk_tpu.ops import encode_jax, ntt_jax, spiral_jax as sj
 from sdk_tpu.ops.server_jax import _join_pair_np, _split_pair_np
-from sdk_tpu.params import (Q2_VALUES, get_fast_expansion_testing_params,
-                            get_no_expansion_testing_params, params_from_json)
+from sdk_tpu import params as params_j
 from sdk_tpu.rng import ChaCha20Rng
 from sdk_tpu_torch import convert
 from sdk_tpu_torch.ops import encode, ntt, spiral as st
 from sdk_tpu_torch.ops.modops import shoup_companion_arr, u32_bits
+from sdk_tpu_torch.params import (Q2_VALUES, get_fast_expansion_testing_params,
+                                  get_no_expansion_testing_params,
+                                  params_from_json, params_to_json_obj)
 
 torch.set_num_threads(1)
 U64 = np.uint64
@@ -37,6 +43,11 @@ EXP_TINY = params_from_json(
     ' "version": 1}')
 
 
+def J(params):
+    """The JAX package's Params of the same JSON as the port's ``params``."""
+    return params_j.params_from_json(json.dumps(params_to_json_obj(params)))
+
+
 def residues(rng, params, lead):
     return np.stack([rng.integers(0, q, lead + (params.poly_len,))
                      for q in params.moduli], axis=-2).astype(U64)
@@ -47,7 +58,7 @@ def t32(a: np.ndarray) -> torch.Tensor:
 
 
 def keys(params, seed=0x11):
-    c = Client(params)
+    c = Client(J(params))
     return c, c.generate_keys_from_seed(
         bytes([seed]) * 32, noise_rng=ChaCha20Rng(bytes([seed + 1]) * 32),
         pp_seed=bytes([seed + 2]) * 32)
@@ -70,12 +81,12 @@ def test_ntt_matches_jax(kind):
     else:
         x = np.stack([rng.integers(0, 4 * q, (3, FAST.poly_len))
                       for q in FAST.moduli], axis=-2).astype(U64)
-    fwd = np.asarray(jax.jit(lambda a: ntt_jax.ntt_forward(FAST, a))(
+    fwd = np.asarray(jax.jit(lambda a: ntt_jax.ntt_forward(J(FAST), a))(
         jnp.asarray(x.astype(np.uint32))))
     got = ntt.ntt_forward(FAST, t32(x)).numpy()
     np.testing.assert_array_equal(got, fwd.astype(np.int32))
-    np.testing.assert_array_equal(got.astype(U64), ntt_host.ntt_forward(FAST, x))
-    inv = np.asarray(jax.jit(lambda a: ntt_jax.ntt_inverse(FAST, a))(
+    np.testing.assert_array_equal(got.astype(U64), ntt_host.ntt_forward(J(FAST), x))
+    inv = np.asarray(jax.jit(lambda a: ntt_jax.ntt_inverse(J(FAST), a))(
         jnp.asarray(fwd)))
     got_inv = ntt.ntt_inverse(FAST, t32(fwd.astype(U64))).numpy()
     np.testing.assert_array_equal(got_inv, inv.astype(np.int32))
@@ -93,7 +104,7 @@ def test_matmul_mod_matches_jax(keyed):
             a_jax, a_t = keyed_pair(FAST, a)
         else:
             a_jax, a_t = jnp.asarray(a.astype(np.uint32)), t32(a)
-        want = np.asarray(jax.jit(lambda x, y: sj.matmul_mod(FAST, x, y))(
+        want = np.asarray(jax.jit(lambda x, y: sj.matmul_mod(J(FAST), x, y))(
             a_jax, jnp.asarray(b.astype(np.uint32))))
         got = st.matmul_mod(FAST, a_t, t32(b)).numpy()
         np.testing.assert_array_equal(got, want.astype(np.int32))
@@ -110,13 +121,13 @@ def test_scan_matches_jax():
     db_host = np.stack([rng.integers(0, q, (params.instances, 4,
                                             params.poly_len, npr, dim0))
                         for q in params.moduli], axis=3).astype(U64)
-    planes = db_tensor_to_device(params, db_host)
+    planes = db_tensor_to_device(J(params), db_host)
     db = convert.db_from_jax_planes(params, planes)
     assert torch.equal(db, convert.db_from_host_tensor(params, db_host))
     for R in (2, 6):
         q_arr = residues(rng, params, (dim0, R)).transpose(2, 3, 0, 1)
         want = np.asarray(jax.jit(lambda d, q: sj.firstdim_multiply(
-            params, d, q))(planes, jnp.asarray(q_arr.astype(np.uint32))))
+            J(params), d, q))(planes, jnp.asarray(q_arr.astype(np.uint32))))
         got = st.firstdim_multiply(params, db, t32(q_arr)).numpy()
         np.testing.assert_array_equal(got, want.astype(np.int32))
 
@@ -130,13 +141,14 @@ def test_automorph_gadget_invert_match_jax():
                        dtype=U64)
     raw[0, 0, 0, :64] = 0
     hi, lo = (jnp.asarray(x) for x in _split_pair_np(raw))
-    perm, neg = sj.automorph_tables(params, params.poly_len // 4 + 1)
+    pj = J(params)
+    perm, neg = sj.automorph_tables(pj, params.poly_len // 4 + 1)
 
     def jax_fn(h, l):
-        ah, al = sj.automorph_pair(params, h, l, perm, neg)
-        ih, il = sj.invert_raw_pair(params, h, l)
-        return (ah, al, ih, il, sj.gadget_digits(params, ah, al, 14, 2),
-                sj.gadget_digits(params, ih[:, :1], il[:, :1], 5, 1))
+        ah, al = sj.automorph_pair(pj, h, l, perm, neg)
+        ih, il = sj.invert_raw_pair(pj, h, l)
+        return (ah, al, ih, il, sj.gadget_digits(pj, ah, al, 14, 2),
+                sj.gadget_digits(pj, ih[:, :1], il[:, :1], 5, 1))
 
     ah, al, ih, il, g1, g2 = (np.asarray(x) for x in jax.jit(jax_fn)(hi, lo))
     r = torch.from_numpy(raw.astype(np.int64))
@@ -165,8 +177,8 @@ def test_expansion_matches_jax():
     client, pp = keys(params)
     query = client.generate_query(
         5, noise_rng=ChaCha20Rng(b"\x14" * 32), query_seed=b"\x15" * 32)
-    q_jax, vf_jax = SpiralServerJax(params).expand_query(
-        pp_to_device(params, pp), query)
+    q_jax, vf_jax = SpiralServerJax(J(params)).expand_query(
+        pp_to_device(J(params), pp), query)
     srv = SpiralServerTorch(params, "cpu")
     q_t, vf_t = srv.expand_query(srv._pp_dev(pp), query)
     np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_jax).astype(np.int32))
@@ -181,9 +193,9 @@ def _fold_fixture():
     client, _ = keys(params)
     query = client.generate_query(
         5, noise_rng=ChaCha20Rng(b"\x18" * 32), query_seed=b"\x19" * 32)
-    v_folding = np.stack([poly.to_ntt(params, ct) for ct in query.v_ct])
-    g_ntt = poly.to_ntt(params, poly.build_gadget(
-        params, 2, 2 * params.t_gsw))
+    pj = J(params)
+    v_folding = np.stack([poly.to_ntt(pj, ct) for ct in query.v_ct])
+    g_ntt = poly.to_ntt(pj, poly.build_gadget(pj, 2, 2 * params.t_gsw))
     return params, v_folding, g_ntt
 
 
@@ -195,9 +207,9 @@ def test_fold_sparse_patterns_match_jax():
     num_per = 1 << params.db_dim_2
     vf_jax = jnp.asarray(v_folding.astype(np.uint32))
     vfn_jax = jax.jit(lambda v: sj.get_v_folding_neg(
-        params, v, g_ntt.astype(np.uint32)))(vf_jax)
+        J(params), v, g_ntt.astype(np.uint32)))(vf_jax)
     fold_jax = jax.jit(lambda h, l: sj.fold_ciphertexts(
-        params, h, l, vf_jax, vfn_jax))
+        J(params), h, l, vf_jax, vfn_jax))
     vf_t = t32(v_folding)
     vfn_t = st.get_v_folding_neg(params, vf_t, t32(g_ntt))
     np.testing.assert_array_equal(vfn_t.numpy(),
@@ -226,7 +238,7 @@ def test_pack_matches_jax(params):
                                             params.poly_len), dtype=U64)
     pairs = [keyed_pair(params, m) for m in pp.v_packing]
     jax_keys = [p[0] for p in pairs]
-    want = np.asarray(jax.jit(lambda h, l, k: sj.pack(params, h, l, k))(
+    want = np.asarray(jax.jit(lambda h, l, k: sj.pack(J(params), h, l, k))(
         *(jnp.asarray(x) for x in _split_pair_np(v_ct)), jax_keys))
     got = st.pack(params, torch.from_numpy(v_ct.astype(np.int64)),
                   [p[1] for p in pairs]).numpy()
@@ -235,7 +247,7 @@ def test_pack_matches_jax(params):
 
 @pytest.mark.parametrize("params", [FAST, V1_TINY], ids=["q2_20", "q2_22"])
 def test_encode_matches_jax(params):
-    plan_jax = encode_jax.ResponseEncodePlan(params)
+    plan_jax = encode_jax.ResponseEncodePlan(J(params))
     plan = encode.ResponseEncodePlan(params, "cpu")
     rng = np.random.default_rng(16)
     packed = rng.integers(0, params.modulus, (params.instances, params.n + 1,
@@ -247,11 +259,11 @@ def test_encode_matches_jax(params):
     packed_t = torch.from_numpy(packed.astype(np.int64))
     for out_mod in (Q2_VALUES[params.q2_bits], 4 * params.pt_modulus):
         want = np.asarray(jax.jit(lambda h, l: encode_jax.rescale_pair(
-            params, h, l, out_mod))(hi, lo))
+            J(params), h, l, out_mod))(hi, lo))
         got = encode.rescale_pair(params, packed_t, out_mod).numpy()
         np.testing.assert_array_equal(got, want.astype(np.int64))
     words = jax.jit(plan_jax.encode)(hi, lo)
     got = plan.to_bytes(plan.encode(packed_t))
     assert got == plan_jax.to_bytes(words)
-    assert got == server_host.encode_response(params, list(
+    assert got == server_host.encode_response(J(params), list(
         packed.astype(U64)))

@@ -2,8 +2,12 @@
 plain versions on the CPU) against the JAX engine.
 
 Both engines serve one identical DB and key set, carried across with
-sdk_tpu_torch.convert; responses must be byte-identical and decode.
+sdk_tpu_torch.convert; responses must be byte-identical and decode. The
+port's Params come from the port's own params module; the JAX side gets the
+JAX package's Params of the same JSON (J).
 """
+
+import json
 
 import pytest
 import torch
@@ -12,10 +16,12 @@ from sdk_tpu import poly, server_host
 from sdk_tpu.arith import log2_ceil
 from sdk_tpu.client import Client, PublicParameters, Query
 from sdk_tpu.ops.server_jax import SpiralServerJax, pp_to_device
-from sdk_tpu.params import get_fast_expansion_testing_params, params_from_json
+from sdk_tpu import params as params_j
 from sdk_tpu.rng import ChaCha20Rng
 from sdk_tpu_torch import convert
 from sdk_tpu_torch.ops.server import SpiralServerTorch
+from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
+                                  params_from_json, params_to_json_obj)
 
 torch.set_num_threads(1)
 FAST = get_fast_expansion_testing_params()
@@ -26,7 +32,15 @@ V1_SMALL = params_from_json(
     ' "instances": 2, "db_item_size": 16384, "version": 1}')
 
 
+def J(params):
+    """The JAX package's Params of the same JSON as the port's ``params``."""
+    return params_j.params_from_json(json.dumps(params_to_json_obj(params)))
+
+
 def session(params, seed: int):
+    """A JAX-package client session (its bytes equal the port client's,
+    tests/test_torch_host_plane.py)."""
+    params = J(params)
     c = Client(params)
     pp = c.generate_keys_from_seed(
         bytes([seed]) * 32, noise_rng=ChaCha20Rng(bytes([seed + 1]) * 32),
@@ -35,13 +49,14 @@ def session(params, seed: int):
 
 
 def query_for(params, client, idx: int, seed: int) -> Query:
+    params = J(params)
     q = client.generate_query(idx, noise_rng=ChaCha20Rng(bytes([seed]) * 32),
                               query_seed=bytes([seed + 1]) * 32)
     return Query.deserialize(params, q.serialize(params))
 
 
 def item_bytes(params, item) -> bytes:
-    return poly.raw_to_bytes(params, item, log2_ceil(params.pt_modulus),
+    return poly.raw_to_bytes(J(params), item, log2_ceil(params.pt_modulus),
                              params.modp_words_per_chunk())
 
 
@@ -52,14 +67,14 @@ def test_response_matches_jax_engine(params):
     target = 23 % params.num_items()
     client, pp = session(params, 0x21)
     query = query_for(params, client, target, 0x24)
-    item, db = server_host.generate_random_db_and_get_item(params, target)
-    srv_jax = SpiralServerJax(params)
+    item, db = server_host.generate_random_db_and_get_item(J(params), target)
+    srv_jax = SpiralServerJax(J(params))
     srv_jax.set_db_host_tensor(db)
     want = srv_jax.process_query(pp, query)
 
     srv = SpiralServerTorch(params, "cpu")
     srv.set_db(convert.db_from_jax_planes(params, srv_jax.db))
-    got = srv.process_query(convert.pp_from_jax(pp_to_device(params, pp)),
+    got = srv.process_query(convert.pp_from_jax(pp_to_device(J(params), pp)),
                             query)
     assert got == want
     assert client.decode_response(got) == item_bytes(params, item)
@@ -69,7 +84,7 @@ def test_batched_matches_single():
     """NQ = 3 (padded to 4 scan column pairs) from two sessions: every
     response equals the single-query response and decodes."""
     params = FAST
-    _, db = server_host.generate_random_db_and_get_item(params, 0)
+    _, db = server_host.generate_random_db_and_get_item(J(params), 0)
     srv = SpiralServerTorch(params, "cpu")
     srv.set_db_host_tensor(db)
     reqs, clients, targets = [], [], [5, 77, 200]
@@ -84,5 +99,5 @@ def test_batched_matches_single():
     assert batched == single
     items = server_host.generate_random_db_and_get_item
     for client, idx, resp in zip(clients, targets, batched):
-        item, _ = items(params, idx)
+        item, _ = items(J(params), idx)
         assert client.decode_response(resp) == item_bytes(params, item)
