@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the sdk_tpu_torch Spiral private-read path once on one CUDA card.
+"""Drive the sdk_tpu_torch main paths once on one CUDA card: the Spiral
+private read over the bucket lifecycle, and the DoublePIR checklist.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -26,9 +27,21 @@ Phases (any failure exits non-zero, with no result line):
 6. full size: a second bucket filled with all 2^15 seeded rows (its first
    flush stays compact, its second migrates; an 8.59 GB dense index), three
    keys written, read through private_read and one 16-query batch.
-7. report: launches of every kernel on the main path (5 and 6, each must be
-   > 0), memory, read and batch wall times, and the kernel table as one
-   JSON line; then the card, and as the last line, the device.
+7. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
+   the colsum row, with the row-batch select) and L (wrapping u32 products,
+   plain and packed) against their plain versions at the checklist path's
+   shapes, on row slices that int64 can hold.
+8. DoublePIR small configs: two byte-element configs and one general
+   (p=991) config; hint and answers on the card equal the port's numpy
+   scheme word for word, and every planted bit is recovered.
+9. checklist at the production config (1024,6.4,92681,92683,32,464: 2^36
+   bloom bits, an 8.59 GB one-byte-per-element DB on the card): keys in,
+   hint setup with the real AES-derived A1/A2, 8-query membership batches
+   through the port's client: members found, a non-member's bits decode
+   to 0, a tampered query does not decode.
+10. report: launches of every kernel on the main paths (5, 6 and 9, each
+   must be > 0), memory, wall times, and the kernel table as one JSON
+   line; then the card, and as the last line, the device.
 
 Launches are counted only while a phase drives the main path: the counts
 are set to 0 just before its reads and read just after, so the launches of
@@ -56,6 +69,7 @@ KEYS = ("alpha", "bravo", "charlie")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor-core peak (dense)
 INT32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit peak (fp32 rate)
+CHECKLIST = "1024,6.4,92681,92683,32,464"   # the production checklist config
 
 
 def log(msg: str) -> None:
@@ -735,6 +749,374 @@ def stage_breakdown(srv, blob: bytes) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def dev_u32(gen: torch.Generator, shape, dev) -> torch.Tensor:
+    """Random uint32 bit patterns as int32, made on the card."""
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
+                         device=dev, generator=gen).to(torch.int32)
+
+
+def dev_i8(gen: torch.Generator, shape, dev, low=-128, high=128):
+    """Random int8 in kernel K's aligned rows."""
+    from sdk_tpu_torch.doublepir.server_torch import aligned_rows
+
+    out = aligned_rows(shape[0], shape[1], dev)
+    out.copy_(torch.randint(low, high, shape, dtype=torch.int8, device=dev,
+                            generator=gen))
+    return out
+
+
+def phase_doublepir_kernels(dev, table: KernelTable,
+                            config: str = CHECKLIST) -> None:
+    """K and L against their plain versions at the checklist path's shapes
+    (row slices of the DB and of the digit planes, full K and N)."""
+    from sdk_tpu_torch.doublepir import kernels as dk, server_torch as st
+    from sdk_tpu_torch.doublepir.params import Params
+
+    params = Params.from_string(config)
+    l, m, n, p = params.l, params.m, params.n, params.p
+    l3 = -(-l // 3) * 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    name = "dp_dot_i8"
+
+    # setup: H1 = DB @ A1 + (128 - p/2) colsum(A1), and one H2 digit plane
+    # (checked on 128 rows; timed on 33 row tiles x 8 column tiles, two
+    # blocks for each of the 132 SMs)
+    a1 = dev_u32(gen, (m, n), dev)
+    trows = 33 * 128
+    db_rows = dev_i8(gen, (trows, m), dev)
+    c1 = 128 - p // 2
+    table.check(name, "setup H1, 128 DB rows", max_abs_err(
+        st.dot_i8_u32(db_rows[:128], a1, c=c1),
+        st._dot_plain(db_rows[:128], None, a1, c1, False)))
+    tiled_ms = cuda_ms(lambda: st.dot_i8_u32(db_rows, a1, c=c1), 3)
+    tiled_b = bound(nbytes(db_rows, a1) + 4 * trows * n, 2 * trows * m * n,
+                    INT32_OPS_PER_S)
+    a2 = dev_u32(gen, (l, n), dev)
+    lo, hi = dev_i8(gen, (128, l), dev, 0, 128), dev_i8(gen, (128, l), dev, 0, 4)
+    table.check(name, "setup H2 pair, 128 digit rows", max_abs_err(
+        st.dot_i8pair_u32(lo, hi, a2, c=-(p // 2)),
+        st._dot_plain(lo, hi, a2, -(p // 2), False)))
+    del a1, a2, lo, hi, db_rows
+
+    # answer: the hint matvec a_2 (pair, 8 columns) and the level-1 pass
+    # with its row-batch select, nq = 8 and 1
+    q2 = dev_u32(gen, (l3, 8), dev)
+    lo, hi = dev_i8(gen, (512, l3), dev, 0, 128), dev_i8(gen, (512, l3), dev, 0, 4)
+    table.check(name, "answer a_2 pair, 512 hint rows x 8", max_abs_err(
+        st.dot_i8pair_u32(lo, hi, q2), st._dot_plain(lo, hi, q2, 0, False)))
+    del lo, hi
+    rows = 2048
+    db_rows = dev_i8(gen, (rows, m), dev)
+    for nq in (8, 1):
+        q1 = dev_u32(gen, (m, nq), dev)
+        table.check(name, f"answer level 1 select, {rows} DB rows, nq={nq}",
+                    max_abs_err(st.dot_i8_select(db_rows, q1, c=128),
+                                st._dot_plain(db_rows, None, q1, 128, True)))
+    q1 = dev_u32(gen, (m, 8), dev)
+    table.timed(
+        name, "sdk_tpu_torch/csrc/dp_dot_i8.cu",
+        "sdk_tpu/doublepir/server_jax.py:52",
+        f"answer level 1 with the row-batch select: ({rows}, {m}) int8 rows "
+        f"of the DB @ ({m}, 8) u32, one column per row batch (ms, plain_ms, "
+        f"bound_ms, library_ms); the whole DB in level1_full_*; the tiled "
+        f"form (setup H1, {trows} rows x {n} columns) in tiled_*; library_ms: "
+        f"torch._int_mm over the same int8 bytes x 8 int8 columns (no 32-bit "
+        f"operand, no select)",
+        cuda_ms(lambda: st.dot_i8_select(db_rows, q1, c=128), 20),
+        cuda_ms(lambda: st._dot_plain(db_rows, None, q1, 128, True), 2),
+        bound(nbytes(db_rows, q1) + 4 * rows, 2 * rows * m, INT32_OPS_PER_S),
+        int_mm_ms(db_rows.contiguous()),
+        tiled_ms=tiled_ms, tiled_bound_ms=tiled_b["bound_ms"],
+        tiled_bound_by=tiled_b["bound_by"])
+    del db_rows, q1
+
+    # L: msg0 = a_1t (4 x l3, packed) @ A2, h_2 = a_1t @ q2, and the general
+    # configs' shapes (packed DB rows @ one query column; a setup product)
+    name = "dp_matmul_u32"
+    a2p = dev_u32(gen, (l3, n), dev)
+    a_1t = dev_u32(gen, (4, l3 // 3), dev) & 0x3FFFFFFF
+    cases = [("msg0 packed", a_1t, a2p, True),
+             ("h_2 packed", a_1t, q2, True),
+             ("msg0 unpacked", dk.unsquish(a_1t, l3), a2p, False),
+             ("packed DB rows @ a query column",
+              dev_u32(gen, (3000, 1000), dev) & 0x3FFFFFFF,
+              dev_u32(gen, (3000, 1), dev), True),
+             ("setup product of a general config",
+              dev_u32(gen, (300, 3001), dev), dev_u32(gen, (3001, 200), dev),
+              False)]
+    for label, a, b, packed in cases:
+        fn, plain = (dk.mat_mul_vec_packed, dk.matmul_u32_packed_plain) \
+            if packed else (dk.matmul_u32, dk.matmul_u32_plain)
+        table.check(name, label, max_abs_err(fn(a, b), plain(a, b)))
+    table.timed(
+        name, "sdk_tpu_torch/csrc/dp_matmul_u32.cu",
+        "sdk_tpu/doublepir/jax_kernels.py:35",
+        f"msg0: packed a_1t (4, {l3 // 3}) words of three 10-bit fields @ A2 "
+        f"({l3}, {n}) u32; h_2 (the same a_1t @ ({l3}, 8)) in h2_ms",
+        cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, a2p), 20),
+        cuda_ms(lambda: dk.matmul_u32_packed_plain(a_1t, a2p), 3),
+        bound(nbytes(a_1t, a2p) + 4 * 4 * n, 2 * 4 * l3 * n, INT32_OPS_PER_S),
+        h2_ms=cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, q2), 20))
+
+
+def planted_bits(gen: np.random.Generator, num_entries: int) -> np.ndarray:
+    return gen.integers(0, 256, (num_entries + 7) // 8,
+                        dtype=np.uint16).astype(np.uint8)
+
+
+def phase_doublepir_small(dev) -> None:
+    """Small configs on the card against the port's own numpy scheme: the
+    hint and every answer matrix word for word, every planted bit
+    recovered."""
+    from sdk_tpu_torch.doublepir import scheme
+    from sdk_tpu_torch.doublepir.client import DoublePirClient
+    from sdk_tpu_torch.doublepir.database import Db
+    from sdk_tpu_torch.doublepir.params import Params
+    from sdk_tpu_torch.doublepir.serializer import serialize_state
+    from sdk_tpu_torch.doublepir.server_torch import ChecklistServerTorch
+    from sdk_tpu_torch.server.doublepir_server import DoublePirKvServerTorch
+
+    gen = np.random.default_rng(SEED + 5)
+    for config in ("64,6.4,13,17,32,464", "1024,6.4,2048,2050,32,464"):
+        params = Params.from_string(config)
+        num_entries = params.l * params.m * 8 - 5
+        bit_bytes = planted_bits(gen, num_entries)
+        db = Db.from_packed_bits(num_entries, params, bit_bytes)
+        shared = scheme.init(db.info, params)
+        state, hint = scheme.setup(db, shared, params)
+        srv = ChecklistServerTorch(num_entries, params, bit_bytes)
+        if srv.device.type != dev.type:
+            raise AssertionError(f"default device is {srv.device}")
+        hint_dev = srv.setup_streamed()
+        if not (np.array_equal(hint_dev[0], hint[0])
+                and np.array_equal(srv.h1_sq, state[0])):
+            raise AssertionError(f"{config}: card hint != numpy scheme")
+        bits = np.unpackbits(bit_bytes, bitorder="little")
+        client = DoublePirClient(params, db.info, shared)
+        client.hint = hint_dev
+        recovered = 0
+        for nq in (1, 4, 8):
+            targets = [int(t) for t in gen.integers(0, num_entries, nq)]
+            queries, datas, plan = client.generate_query_batch(targets, gen)
+            got = srv.answer(queries)
+            want = scheme.answer(db, queries, state, params)
+            if len(got) != len(want) or not all(
+                    np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{config} nq={nq}: card answer != "
+                                     f"numpy scheme")
+            raw = serialize_state(got)
+            for b, entry in enumerate(plan):
+                if entry is None:
+                    continue
+                val = client.decode_response(raw, entry[0], b, datas[b])
+                if val != int(bits[entry[0]]):
+                    raise AssertionError(f"{config}: bit {entry[0]} "
+                                         f"recovered as {val}")
+                recovered += 1
+        log(f"[dp small] {config}: hint, squished H1 and the answers for "
+            f"nq = 1, 4, 8 equal the numpy scheme word for word; "
+            f"{recovered} planted bits recovered")
+
+    # a general config (p=991: 9 entries per element) through the bucket
+    log2m = 17
+    params = Params.from_string("1024,6.4,128,128,32,991")
+    srv = DoublePirKvServerTorch(log2m, params)
+    keys = [f"member-{i}" for i in range(40)]
+    srv.add_keys(keys)
+    hint_bytes = srv.get_hint()
+    if srv._engine is not None:
+        raise AssertionError("p=991 must take the general branch")
+    db = Db.from_packed_bits(1 << log2m, params, srv.bit_bytes)
+    shared = scheme.init(db.info, params)
+    state, hint = scheme.setup(db, shared, params)
+    if hint_bytes != serialize_state(hint):
+        raise AssertionError("general config: card hint != numpy scheme")
+    for key, member in ((keys[3], True), ("not-a-member", False)):
+        client, qb, queries, datas, plan = checklist_batch(srv, key, gen)
+        raw = srv.answer(qb)
+        if raw != serialize_state(scheme.answer(db, queries, state, params)):
+            raise AssertionError("general config: card answer != numpy scheme")
+        got = decode_plan(client, raw, datas, plan)
+        if (0 not in got) != member:
+            raise AssertionError(f"general config: {key!r} decoded {got}")
+    log("[dp small] 1024,6.4,128,128,32,991 (general branch): hint and "
+        "answer bytes equal the numpy scheme; member found, non-member not")
+
+
+def checklist_batch(srv, key: str, gen: np.random.Generator, client=None):
+    """The 8-query batch a client's check_inclusion sends for ``key`` (one
+    query per bloom index, planned one per row batch)."""
+    from sdk_tpu_torch.clients.bloom import bloom_hash
+    from sdk_tpu_torch.doublepir.client import DoublePirClient
+    from sdk_tpu_torch.doublepir.serializer import serialize_states
+    from sdk_tpu_torch.server.doublepir_server import BLOOM_K
+
+    if client is None:
+        meta = srv.meta()["pir_scheme"]
+        client = DoublePirClient.from_strings(meta["params"], meta["dbinfo"])
+        client.load_hint(srv.get_hint())
+    idxs = [bloom_hash(key, i, srv.log2m) for i in range(BLOOM_K)]
+    queries, datas, plan = client.generate_query_batch(idxs, gen)
+    return client, serialize_states(queries), queries, datas, plan
+
+
+def decode_plan(client, raw: bytes, datas, plan) -> list[int]:
+    return [client.decode_response(raw, e[0], b, datas[b])
+            for b, e in enumerate(plan) if e is not None]
+
+
+def answer_breakdown(srv, body: bytes) -> dict:
+    """Median wall ms of the three stages of one checklist answer: query
+    bytes -> matrices, the engine's answer (uploads, four launches, digit
+    glue, fetch), matrices -> response bytes."""
+    from sdk_tpu_torch.doublepir.serializer import (deserialize_states,
+                                                    serialize_state)
+
+    times: dict[str, list] = {"deserialize": [], "engine_answer": [],
+                              "serialize": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        queries = deserialize_states(body)
+        t1 = time.perf_counter()
+        resp = srv._engine.answer(queries)
+        t2 = time.perf_counter()
+        serialize_state(resp)
+        t3 = time.perf_counter()
+        for k, v in zip(times, (t1 - t, t2 - t1, t3 - t2)):
+            times[k].append(v * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def phase_checklist_full(dev, table: KernelTable, launches: Launches,
+                         log2m: int = 36, config: str = CHECKLIST,
+                         n_keys: int = 300) -> dict:
+    """The production checklist bucket, end to end on the card."""
+    from sdk_tpu_torch.doublepir import kernels as dk, server_torch as st
+    from sdk_tpu_torch.doublepir.serializer import serialize_states
+    from sdk_tpu_torch.server.doublepir_server import DoublePirKvServerTorch
+
+    gen = np.random.default_rng(SEED + 6)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = DoublePirKvServerTorch(log2m)          # the default device: cuda
+    if srv.params.to_string() != config or srv.device.type != dev.type:
+        raise AssertionError(f"want {config} on the card, got "
+                             f"{srv.params.to_string()} on {srv.device}")
+    members = [f"breached-password-{i:04d}" for i in range(n_keys)]
+    srv.add_keys(members)
+    t = time.perf_counter()
+    hint_bytes, setup_counts = launches.run(srv.get_hint)
+    setup_s = time.perf_counter() - t
+    eng = srv._engine
+    if eng is None or setup_counts["dp_dot_i8"] <= 0:
+        raise AssertionError(f"setup did not run the device engine: "
+                             f"{setup_counts}")
+    out = {"config": config, "num_entries": 1 << log2m,
+           "db": f"bloom bits of {n_keys} keys in a host bit array, uploaded in "
+                 "chunks, byte ^ 0x80 on the card",
+           "db_bytes": eng.params.l * eng.params.m,
+           "setup_wall_s": setup_s, "hint_bytes": len(hint_bytes),
+           "setup_launches": setup_counts,
+           "memory_allocated_after_setup": torch.cuda.memory_allocated(dev),
+           "max_memory_allocated_setup": torch.cuda.max_memory_allocated(dev)}
+    log(f"[checklist] {config}: 2^{log2m} entries, {out['db_bytes']} DB "
+        f"bytes on the card; setup with the AES-derived A1/A2 in "
+        f"{setup_s:.1f} s; hint {len(hint_bytes)} bytes; memory_allocated "
+        f"{out['memory_allocated_after_setup']}, peak "
+        f"{out['max_memory_allocated_setup']}")
+
+    # a member whose 8 bloom indices fall into at least 5 of the 8 row
+    # batches: a client declares membership on >= 5 planned bits
+    from sdk_tpu_torch.clients.bloom import bloom_hash
+
+    bs = eng.params.l // 8
+    member = next(k for k in members if len({
+        min(bloom_hash(k, i, log2m) // 8 // eng.params.m // bs, 7)
+        for i in range(8)}) >= 5)
+    t = time.perf_counter()
+    client, qb, queries, datas, plan = checklist_batch(srv, member, gen)
+    out["client_batch_s"] = time.perf_counter() - t
+    planned = sum(e is not None for e in plan)
+    raw, counts = launches.run(lambda: srv.answer(qb))
+    if counts["dp_dot_i8"] != 2 or counts["dp_matmul_u32"] != 2:
+        raise AssertionError(f"an answer is 2 K + 2 L launches: {counts}")
+    got = decode_plan(client, raw, datas, plan)
+    if planned < 5 or got != [1] * planned:
+        raise AssertionError(f"member: {planned} planned bits decoded {got}")
+    # the same queries, tampered: the first-level vectors no longer select
+    bad = [[q[0] ^ np.uint32(0x5A5A5A5A)] + list(q[1:]) for q in queries]
+    got_bad = decode_plan(client, srv.answer(serialize_states(bad)), datas,
+                          plan)
+    if got_bad == [1] * planned:
+        raise AssertionError("tampered queries still decoded")
+    # one query alone (the interactive pattern), and a non-member
+    b0 = next(b for b, e in enumerate(plan) if e is not None)
+    one = serialize_states([queries[b0]])
+    raw1, _ = launches.run(lambda: srv.answer(one))
+    if client.decode_response(raw1, plan[b0][0], 0, datas[b0]) != 1:
+        raise AssertionError("single-query answer did not decode")
+    _, qb_n, _, datas_n, plan_n = checklist_batch(srv, "not-a-member", gen,
+                                                  client)
+    raw_n, _ = launches.run(lambda: srv.answer(qb_n))
+    got_n = decode_plan(client, raw_n, datas_n, plan_n)
+    if any(got_n):
+        raise AssertionError(f"non-member bits decoded {got_n}")
+    log(f"[checklist] member: {planned} planned bloom bits all 1; tampered "
+        f"queries decoded {got_bad}; single query decoded; non-member's "
+        f"{len(got_n)} bits all 0")
+
+    def wall_ms(body: bytes) -> list:
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            srv.answer(body)
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    for label, body in (("nq8", qb), ("nq1", one)):
+        times = wall_ms(body)
+        out[f"answer_wall_ms_{label}_median"] = float(np.median(times))
+        out[f"answer_wall_ms_{label}_all"] = times
+    out["launches_per_answer"] = counts
+    out["answer_stages_ms_nq8"] = answer_breakdown(srv, qb)
+
+    # the answer's kernels on the bucket's own operands
+    q1 = dk.as_u32_tensor(np.concatenate(
+        [q[0][:eng.params.m] for q in queries], axis=1), dev)
+    q2 = dk.as_u32_tensor(np.concatenate([q[1] for q in queries], axis=1), dev)
+    db_bytes = nbytes(eng.db)
+    k_row = table.rows["dp_dot_i8"]
+    for nq in (8, 1):
+        q = q1[:, :nq].contiguous()
+        ms = cuda_ms(lambda: st.dot_i8_select(eng.db, q, c=128), 5)
+        b = bound(db_bytes + nbytes(q) + 4 * eng.params.l,
+                  2 * db_bytes, INT32_OPS_PER_S)
+        k_row.update({f"level1_full_ms_nq{nq}": ms,
+                      f"level1_full_GBps_nq{nq}": db_bytes / ms / 1e6,
+                      f"level1_full_bound_ms_nq{nq}": b["bound_ms"],
+                      f"level1_full_bound_by_nq{nq}": b["bound_by"],
+                      f"level1_full_share_of_bound_nq{nq}": b["bound_ms"] / ms})
+    a2_ms = cuda_ms(lambda: st.dot_i8pair_u32(eng.h1_lo, eng.h1_hi, q2), 10)
+    a2_b = bound(nbytes(eng.h1_lo, eng.h1_hi, q2) + 4 * eng.h1_lo.shape[0] * 8,
+                 2 * eng.h1_lo.numel() * 8, INT32_OPS_PER_S)
+    k_row.update(a2_full_ms=a2_ms, a2_full_bound_ms=a2_b["bound_ms"],
+                 a2_full_bound_by=a2_b["bound_by"])
+    out["level1_ms_nq8"] = k_row["level1_full_ms_nq8"]
+    out["level1_GBps_nq8"] = k_row["level1_full_GBps_nq8"]
+    log(f"[checklist] answer wall median {out['answer_wall_ms_nq8_median']:.2f}"
+        f" ms (nq=8), {out['answer_wall_ms_nq1_median']:.2f} ms (nq=1); K "
+        f"level 1 over {db_bytes} bytes {out['level1_ms_nq8']:.3f} ms = "
+        f"{out['level1_GBps_nq8']:.0f} GB/s; a_2 {a2_ms:.3f} ms; "
+        f"{counts['dp_dot_i8']} K + {counts['dp_matmul_u32']} L launches per "
+        f"answer")
+    del srv, eng, q1, q2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -769,6 +1151,13 @@ def main() -> int:
     launches = Launches()
     lifecycle = phase_lifecycle(params, sessions, dev, table, launches)
     full = phase_full(params, sessions, dev, table, launches)
+    del sessions
+    phase_doublepir_kernels(dev, table)
+    log("[dp kernels] K (one plane, pair, colsum row, row-batch select) and "
+        "L (plain, packed) equal their plain versions at the checklist "
+        "path's shapes")
+    phase_doublepir_small(dev)
+    checklist = phase_checklist_full(dev, table, launches)
 
     for name in _build.LAUNCHES:
         n = launches.total.get(name, 0)
@@ -778,7 +1167,8 @@ def main() -> int:
         table.rows[name]["launches"] = n
     log("[report] " + json.dumps({"card": card, "build_s": build_s,
                                   "launches": launches.total,
-                                  "lifecycle": lifecycle, "full": full}))
+                                  "lifecycle": lifecycle, "full": full,
+                                  "checklist": checklist}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))
     print(json.dumps({"ok": True, "device": {

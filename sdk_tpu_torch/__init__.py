@@ -1,5 +1,5 @@
-"""sdk_tpu_torch — the Spiral private-read path of sdk_tpu on PyTorch and
-hand-written CUDA kernels for NVIDIA Hopper (H100).
+"""sdk_tpu_torch — the Spiral private-read path and the DoublePIR checklist
+of sdk_tpu on PyTorch and hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The JAX package ``sdk_tpu`` stays the reference. This package has no
 runtime dependency on it: it carries its own copy of the numpy host plane
@@ -19,6 +19,12 @@ runtime dependency on it: it carries its own copy of the numpy host plane
 - ``kv.ingest``    device ingest into the compact or dense index, migration
 - ``server.kv_server``  SpiralKvServerTorch bucket (compact -> dense
                    lifecycle)
+- ``doublepir``    DoublePIR: a copy of the numpy host plane, ``kernels``
+                   (wrapping u32 products, L, csrc/dp_matmul_u32.cu) and
+                   ``server_torch`` (ChecklistServerTorch; int8 DB products,
+                   K, csrc/dp_dot_i8.cu)
+- ``server.doublepir_server``  DoublePirKvServerTorch checklist bucket and
+                   its HTTP handler
 
 Tensors on a CUDA device run the kernels (built with nvcc on first use,
 see ``_build``); tensors on the CPU run each kernel's plain PyTorch version.

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches by kernel name, counted where each wrapper launches.
 LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
                             "matmul_mod": 0, "scan": 0, "encode": 0,
-                            "scan_compact": 0, "expand_round": 0}
+                            "scan_compact": 0, "expand_round": 0,
+                            "dp_dot_i8": 0, "dp_matmul_u32": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +55,10 @@ _SIGNATURES = {
                               _U, _ULL, _U, _P)),
     "sdk_expand_round": ("expand_round", (_P, _P, _P, _P, _LL, _I, _I, _I,
                                           _ULL, _U, _U, _ULL, _P)),
+    "sdk_dp_dot_i8": ("dp_dot_i8", (_P, _P, _LL, _P, _I, _LL, _P, _P, _LL, _I,
+                                    _LL, _I, _P)),
+    "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
+                                            _P)),
 }
 
 _lock = threading.Lock()

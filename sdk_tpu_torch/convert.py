@@ -1,8 +1,9 @@
 """State carried across from the JAX engine or the host oracle to the port.
 
 The tests use these so that SpiralServerJax and SpiralServerTorch serve one
-identical DB with one key set. Every function returns CPU tensors; move them
-to a device with ``.to(device)`` (SpiralServerTorch.set_db does).
+identical DB with one key set, and a ChecklistServerTorch answers from a
+ChecklistServerJax's own hint. The Spiral functions return CPU tensors; move
+them to a device with ``.to(device)`` (SpiralServerTorch.set_db does).
 """
 
 from __future__ import annotations
@@ -55,3 +56,15 @@ def pp_from_jax(pp_dev: dict) -> dict:
         out[key] = [keyed(p) for p in val] if isinstance(val, list) \
             else keyed(val)
     return out
+
+
+def checklist_from_jax(srv_jax) -> dict:
+    """A ChecklistServerJax's serving state (single device, after setup or
+    install_hint) as numpy arrays, in the form
+    ChecklistServerTorch.install_state takes: the int8 DB, the (lo, hi)
+    digit planes of H1, the row-padded A2 and its host transpose."""
+    return {"db": np.asarray(srv_jax.db),
+            "h1_lo": np.asarray(srv_jax.h1_lo),
+            "h1_hi": np.asarray(srv_jax.h1_hi),
+            "a2_pad": np.asarray(srv_jax._a2_pad_dev),
+            "a_2_t": srv_jax.a_2_t}

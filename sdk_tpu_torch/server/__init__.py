@@ -1,1 +1,3 @@
-"""Bucket server state of the port (ports sdk_tpu.server.kv_server)."""
+"""Bucket servers of the port: the Spiral key-value bucket (ports
+sdk_tpu.server.kv_server) and the DoublePIR checklist bucket with its HTTP
+handler (ports sdk_tpu.server.doublepir_server)."""

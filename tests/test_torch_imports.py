@@ -33,7 +33,13 @@ def test_every_module_imports_without_jax():
     that refuses jax, jaxlib, sdk_tpu and every sdk_tpu.* module (not
     sdk_tpu_torch)."""
     mods = port_modules()
-    assert "sdk_tpu_torch.server.kv_server" in mods
+    assert {"sdk_tpu_torch.server.kv_server",
+            "sdk_tpu_torch.server.doublepir_server",
+            "sdk_tpu_torch.clients.bloom",
+            "sdk_tpu_torch.doublepir.kernels",
+            "sdk_tpu_torch.doublepir.server_torch",
+            "sdk_tpu_torch.doublepir.scheme",
+            "sdk_tpu_torch.doublepir.client"} <= set(mods)
     code = ("import importlib, sys\n"
             "class Refuse:\n"
             "    def find_spec(self, name, path=None, target=None):\n"

@@ -212,3 +212,118 @@ def test_bucket_lifecycle_on_card(cuda, state):
     assert layout == ("dense" if state == "S3" else "compact")
     assert (counts["scan_compact"] > 0) == (state != "S3"), counts
     assert counts["expand_round"] > 0, counts
+
+
+# ---- DoublePIR: kernels K (dp_dot_i8) and L (dp_matmul_u32) ---------------
+
+def _u32(rng, shape, bits=32):
+    return torch.from_numpy(rng.integers(0, 1 << bits, shape, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(4, 1000, 300), (3, 70001, 8), (64, 300, 7),
+                                   (300, 257, 1), (70, 1234, 130), (1, 1, 1)])
+def test_dp_matmul_u32_matches_plain(cuda, shape):
+    from sdk_tpu_torch.doublepir import kernels as dk
+
+    M, K, N = shape
+    rng = np.random.default_rng(11)
+    a, b = _u32(rng, (M, K)), _u32(rng, (K, N))
+    before = _build.LAUNCHES["dp_matmul_u32"]
+    got = dk.matmul_u32(a.to(cuda), b.to(cuda)).cpu()
+    assert _build.LAUNCHES["dp_matmul_u32"] == before + 1
+    assert torch.equal(got, dk.matmul_u32_plain(a, b))
+
+
+@pytest.mark.parametrize("shape", [(4, 333, 300), (4, 30001, 8), (300, 11, 1),
+                                   (70, 100, 130)])
+def test_dp_matmul_u32_packed_matches_plain(cuda, shape):
+    from sdk_tpu_torch.doublepir import kernels as dk
+
+    M, cols, N = shape
+    rng = np.random.default_rng(12)
+    ap, b = _u32(rng, (M, cols), bits=30), _u32(rng, (cols * 3, N))
+    want = dk.matmul_u32_packed_plain(ap, b)
+    assert torch.equal(dk.mat_mul_vec_packed(ap.to(cuda), b.to(cuda)).cpu(),
+                       want)
+    bt = b.t().contiguous()
+    assert torch.equal(
+        dk.mat_mul_transposed_packed(ap.to(cuda), bt.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("shape", [(37, 1001, 1), (37, 1003, 3), (9, 4098, 8),
+                                   (200, 777, 40), (130, 64, 130),
+                                   (1, 5, 2)])
+def test_dp_dot_i8_matches_plain(cuda, shape, pair):
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    M, K, N = shape
+    rng = np.random.default_rng(13)
+    b = _u32(rng, (K, N))
+    if pair:
+        lo = torch.from_numpy(rng.integers(0, 128, (M, K)).astype(np.int8))
+        hi = torch.from_numpy(rng.integers(0, 4, (M, K)).astype(np.int8))
+        got = st.dot_i8pair_u32(lo.to(cuda), hi.to(cuda), b.to(cuda), c=-232)
+        want = st.dot_i8pair_u32(lo, hi, b, c=-232)
+    else:
+        a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+        got = st.dot_i8_u32(a.to(cuda), b.to(cuda), c=128 - 232)
+        want = st.dot_i8_u32(a, b, c=128 - 232)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("K", [1003, 1004])
+@pytest.mark.parametrize("nq", [1, 3, 4, 8])
+def test_dp_dot_i8_select_matches_plain(cuda, nq, K):
+    """K = 1003 in aligned rows with a ragged last word; K = 1004
+    contiguous, read in place."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    rng = np.random.default_rng(14)
+    M = 101
+    a = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    b = _u32(rng, (K, nq))
+    if K % 4:
+        a_dev = st.aligned_rows(M, K, cuda)
+        a_dev.copy_(a)
+    else:
+        a_dev = a.to(cuda)
+        assert st._kernel_rows(a_dev) is a_dev
+    got = st.dot_i8_select(a_dev, b.to(cuda), c=128).cpu()
+    assert torch.equal(got, st.dot_i8_select(a, b, c=128))
+    full = st.dot_i8_u32(a, b, c=128)
+    idx = st.batch_index(M, nq, "cpu")
+    assert torch.equal(got, full[torch.arange(M), idx])
+
+
+@pytest.mark.parametrize("config", ["64,6.4,13,17,32,464",
+                                    "64,6.4,200,301,32,464"])
+def test_checklist_on_card_equals_cpu(cuda, config):
+    """Hint, squished H1 and every answer matrix of the checklist server on
+    the card equal the CPU plain versions'; the answers launch K and L."""
+    from sdk_tpu_torch.doublepir import scheme
+    from sdk_tpu_torch.doublepir.params import Params
+    from sdk_tpu_torch.doublepir.server_torch import ChecklistServerTorch
+
+    params = Params.from_string(config)
+    num_entries = params.l * params.m * 8 - 5
+    rng = np.random.default_rng(15)
+    bits = rng.integers(0, 256, (num_entries + 7) // 8,
+                        dtype=np.uint16).astype(np.uint8)
+    servers = [ChecklistServerTorch(num_entries, params, bits, device=d)
+               for d in (cuda, "cpu")]
+    hints = [s.setup_streamed() for s in servers]
+    np.testing.assert_array_equal(hints[0][0], hints[1][0])
+    np.testing.assert_array_equal(servers[0].h1_sq, servers[1].h1_sq)
+    shared = scheme.init(servers[0].info, params)
+    for nq in (1, 4, 8):
+        queries = [scheme.query(int(t), shared, params, servers[0].info,
+                                rng)[1]
+                   for t in rng.integers(0, num_entries, nq)]
+        _build.reset_launches()
+        got = servers[0].answer(queries)
+        assert _build.LAUNCHES["dp_dot_i8"] == 2
+        assert _build.LAUNCHES["dp_matmul_u32"] == 2
+        for g, w in zip(got, servers[1].answer(queries)):
+            np.testing.assert_array_equal(g, w)

@@ -25,7 +25,8 @@ def test_s3_migration_to_dense_matches_jax():
     rows = {**first, **more}
     targets = [41, 8, 191]
     blobs = [pair.blob(i % 2, t, 20 + i) for i, t in enumerate(targets)]
-    single = pair.read(blobs[0])
+    single = pair.read(blobs[0], with_jax=False)
+    pair.jax._flush()
     assert pair.layout() == ("dense", False)
     assert not isinstance(pair.jax.engine.db, CompactDb)
     assert not pair.port._updates.slots.slot_of
