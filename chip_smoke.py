@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the sdk_tpu_torch main paths once on one CUDA card: the Spiral
-private read over the bucket lifecycle, and the DoublePIR checklist.
+private read over the bucket lifecycle, the bucket's HTTP service, and the
+DoublePIR checklist.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -11,9 +12,10 @@ Phases (any failure exits non-zero, with no result line):
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the CUDA kernels from sdk_tpu_torch/csrc with nvcc, one
    process per source, all at once.
-3. kernels: A, A', B, D against their plain PyTorch versions on the card at
-   the main path's shapes (1 GiB bucket), exactly (integer results,
-   tolerance 0), timed with CUDA events beside their bounds.
+3. kernels: A, A', B, D and the fused F (fold round), G (pack), H (ingest)
+   against their plain PyTorch versions on the card at the main path's
+   shapes (1 GiB bucket), exactly (integer results, tolerance 0), timed
+   with CUDA events beside their bounds.
 4. small configs: whole responses of the port on the card byte-identical to
    the port on the CPU (the plain versions), decoded by the port's Client.
 5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
@@ -27,20 +29,27 @@ Phases (any failure exits non-zero, with no result line):
 6. full size: a second bucket filled with all 2^15 seeded rows (its first
    flush stays compact, its second migrates; an 8.59 GB dense index), three
    keys written, read through private_read and one 16-query batch.
-7. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
+7. service: the 1 GiB bucket behind its HTTP service on localhost, driven
+   through sdk_tpu_torch.clients only: setup (JSON and presigned upload),
+   /write of a few hundred keys, private reads, 16 readers at once through
+   the read coalescer, /update-row past the dense migration, /bloom,
+   /list-keys, /meta, /modify, checkpoints of the compact and the dense
+   index restored into new buckets that answer with the same bytes, /clear,
+   /destroy.
+8. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
    the colsum row, with the row-batch select) and L (wrapping u32 products,
    plain and packed) against their plain versions at the checklist path's
    shapes, on row slices that int64 can hold.
-8. DoublePIR small configs: two byte-element configs and one general
+9. DoublePIR small configs: two byte-element configs and one general
    (p=991) config; hint and answers on the card equal the port's numpy
    scheme word for word, and every planted bit is recovered.
-9. checklist at the production config (1024,6.4,92681,92683,32,464: 2^36
+10. checklist at the production config (1024,6.4,92681,92683,32,464: 2^36
    bloom bits, an 8.59 GB one-byte-per-element DB on the card): keys in,
    hint setup with the real AES-derived A1/A2, 8-query membership batches
    through the port's client: members found, a non-member's bits decode
    to 0, a tampered query does not decode.
-10. report: launches of every kernel on the main paths (5, 6 and 9, each
-   must be > 0), memory, wall times, and the kernel table as one JSON
+11. report: launches of every kernel on the main paths (5, 6, 7 and 10,
+   each must be > 0), memory, wall times, and the kernel table as one JSON
    line; then the card, and as the last line, the device.
 
 Launches are counted only while a phase drives the main path: the counts
@@ -54,8 +63,11 @@ import base64
 import bz2
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -70,6 +82,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor-core peak (dense)
 INT32_OPS_PER_S = 67e12         # H100 SXM CUDA-core 32-bit peak (fp32 rate)
 CHECKLIST = "1024,6.4,92681,92683,32,464"   # the production checklist config
+P16 = ('{"n": 2, "nu_1": 2, "nu_2": 2, "p": 16, "q2_bits": 20, "t_gsw": 8,'
+       ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
+       ' "version": 0}')
+BATCH_WINDOW_MS = 25.0          # the service's read-coalescing window
+# integer operations of one Harvey butterfly, as the A / A' rows count them
+BUTTERFLY_OPS = 6
 
 
 def log(msg: str) -> None:
@@ -188,17 +206,22 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
     x = residues(params, gen, (4096,), dev)
     digits = torch.from_numpy(gen.integers(0, 1 << 19, (4096, 2, 2048))
                               .astype(np.int32)).to(dev)
+    # any uint32 bit pattern: 4q and above are reduced as they are loaded
+    any_u32 = gen.integers(0, 1 << 32, (256, 2, 2048), dtype=np.uint64)
+    any_u32[0, :, :4] = [4 * params.moduli[0], 4 * params.moduli[1],
+                         1 << 31, (1 << 32) - 1]
+    any_u32 = torch.from_numpy(any_u32.astype(np.uint32).view(np.int32)).to(dev)
     src = "sdk_tpu_torch/csrc/ntt.cu"
     tables = ntt.tables(params, dev)
     # 1024 butterflies per stage x 11 stages per poly, ~6 integer ops each
     ntt_ops = 6 * x.numel() // 2 * params.poly_len_log2
     for name, fn, plain, replaces, inputs in (
             ("ntt_forward", ntt.ntt_forward, ntt.ntt_forward_plain,
-             "sdk_tpu/ops/ntt_jax.py:199", (x, digits)),
+             "sdk_tpu/ops/ntt_jax.py:199", (x, digits, any_u32)),
             ("ntt_inverse", ntt.ntt_inverse, ntt.ntt_inverse_plain,
              "sdk_tpu/ops/ntt_jax.py:215", (x,))):
         for i, inp in enumerate(inputs):
-            table.check(name, "digits" if i else "residues",
+            table.check(name, ("residues", "digits", "any uint32")[i],
                         max_abs_err(fn(params, inp), plain(params, inp)))
         table.timed(name, src, replaces, "(4096, 2, 2048) int32 residues",
                     cuda_ms(lambda: fn(params, x), 20),
@@ -256,6 +279,205 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
                 cuda_ms(lambda: plan.encode_plain(packed), 3),
                 bound(nbytes(packed) + 4 * plan.num_words,
                       10 * packed.numel(), INT32_OPS_PER_S))
+
+
+def transform_ops(n_two_channel: int, params) -> int:
+    """Integer operations of n two-channel 2048-point transforms."""
+    return (n_two_channel * 2 * (params.poly_len // 2) * params.poly_len_log2
+            * BUTTERFLY_OPS)
+
+
+def phase_fused_kernels(params, dev, table: KernelTable) -> None:
+    """F, G and H against their plain versions at the 1 GiB bucket's shapes,
+    and G and H once on other parameter sets (version 0; p = 16)."""
+    from sdk_tpu_torch.kv import ingest as ing
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
+                                      params_from_json)
+
+    gen = np.random.default_rng(SEED + 7)
+    z = params.poly_len
+    it = params.instances * params.n * params.n
+    num_per = 1 << params.db_dim_2
+    ell = 2 * params.t_gsw
+
+    # ---- F: round 0 (num_per -> num_per/2: 512 slots a query) and the last
+    # round (2 -> 1: 16 slots), NQ = 1 and 16, per-query keys
+    def fold_case(nq: int, in_slots: int):
+        cts = torch.from_numpy(gen.integers(
+            0, params.modulus, (nq, it, in_slots, 2, 1, z), dtype=np.int64))
+        half = in_slots // 2
+        cts[0, 0, 0] = 0                      # a == 0: takes b
+        cts[0, 1, half] = 0                   # b == 0: takes a
+        cts[0, 2, 0] = 0
+        cts[0, 2, half] = 0                   # both: stays zero
+        keys = [residues(params, gen, (nq, params.db_dim_2, 2, ell), dev)
+                for _ in range(2)]
+        return cts.to(dev), keys[0], keys[1]
+
+    def fold_bound(cts, nq):
+        a, b = cts[:, :, :cts.shape[2] // 2], cts[:, :, cts.shape[2] // 2:]
+        live = int((a.flatten(3).any(-1) & b.flatten(3).any(-1)).sum())
+        # per live slot: 2*ell forward + 2 inverse two-channel transforms,
+        # 2*ell digit polys x 2 rows x 2 channels x z multiply-adds
+        ops = live * (transform_ops(2 * ell + 2, params) + 2 * 2 * ell * 4 * z)
+        key_bytes = nq * 2 * 2 * ell * 2 * z * 4
+        return bound(nbytes(cts) + nbytes(cts) // 2 + key_bytes, ops,
+                     INT32_OPS_PER_S), live
+
+    fold_ms = {}
+    for nq in (1, 16):
+        for label, in_slots, key in (("round 0", num_per, params.db_dim_2 - 1),
+                                     ("last round", 2, 0)):
+            cts, vn, vf = fold_case(nq, in_slots)
+            got = sj._fold_round_launch(params, cts, vn, vf, key, 1)
+            for q in sorted({0, nq // 2, nq - 1}):   # plain: a query a time
+                table.check("fold_round", f"{label} NQ={nq} query {q}",
+                            max_abs_err(got[q:q + 1], sj.fold_round_plain(
+                                params, cts[q:q + 1], vn[q:q + 1, key],
+                                vf[q:q + 1, key])))
+            if not (torch.equal(got[0, 0, 0], cts[0, 0, in_slots // 2])
+                    and torch.equal(got[0, 1, 0], cts[0, 1, 0])
+                    and not got[0, 2, 0].any()):
+                raise AssertionError("fold_round: zero slots not verbatim")
+            ms = cuda_ms(lambda: sj._fold_round_launch(params, cts, vn, vf,
+                                                       key, 1), 10)
+            bnd, live = fold_bound(cts, nq)
+            fold_ms[(nq, label)] = (ms, bnd, live)
+            if nq == 1 and in_slots == num_per:
+                plain_ms = cuda_ms(lambda: sj.fold_round_plain(
+                    params, cts, vn[:, key], vf[:, key]), 2)
+                whole = cuda_ms(lambda: sj.fold_ciphertexts(params, cts, vf,
+                                                            vn), 5)
+                shape = f"{tuple(cts.shape)} int64 -> {tuple(got.shape)}"
+            del cts, vn, vf, got
+    ms, bnd, live = fold_ms[(1, "round 0")]
+    extra = {"live_slots": live, "whole_fold_ms_nq1": whole}
+    for (nq, label), (m, b, lv) in fold_ms.items():
+        tag = f"nq{nq}_{'round0' if label == 'round 0' else 'last_round'}"
+        extra.update({f"{tag}_ms": m, f"{tag}_bound_ms": b["bound_ms"],
+                      f"{tag}_live_slots": lv})
+    table.timed("fold_round", "sdk_tpu_torch/csrc/fold_round.cu",
+                "sdk_tpu/ops/spiral_jax.py:818",
+                f"round 0 of one query's fold: {shape}, keys (1, "
+                f"{params.db_dim_2}, 2, {ell}, 2, {z}) int32 x 2; the last "
+                f"round, NQ = 16 and a whole six-round fold in the other keys",
+                ms, plain_ms, bnd, None, **extra)
+    log(f"[kernels] F equals its plain version (round 0 and the last round, "
+        f"NQ = 1 and 16, zero slots verbatim); round 0 NQ=1 {ms:.4f} ms, "
+        f"NQ=16 {fold_ms[(16, 'round 0')][0]:.4f} ms, whole fold {whole:.4f} ms")
+
+    # ---- G: 4 instances, NQ = 1 and 16, per-query keys; version 0 once
+    def pack_case(prm, nq: int):
+        nkeys = prm.n if prm.version == 0 else 2
+        keys = [[residues(prm, gen, (prm.n + 1, prm.t_conv), dev)
+                 for _ in range(nkeys)] for _ in range(nq)]
+        v_ct = torch.from_numpy(gen.integers(
+            0, prm.modulus, (nq, prm.instances, prm.n * prm.n, 2, 1,
+                             prm.poly_len), dtype=np.int64))
+        v_ct[0, 0, 0] = 0
+        return v_ct.to(dev), keys
+
+    def pack_check(prm, nq: int, label: str):
+        v_ct, keys = pack_case(prm, nq)
+        got = sj.pack_queries(prm, v_ct, keys)
+        raw = sj.pack_queries(prm, v_ct, keys, raw=True)
+        for q in sorted({0, nq - 1}):
+            want = torch.stack([sj.pack_plain(prm, v_ct[q, j], keys[q])
+                                for j in range(prm.instances)])
+            table.check("pack", f"{label} NQ={nq} query {q}",
+                        max_abs_err(got[q], want))
+            table.check("pack", f"{label} NQ={nq} query {q}, raw", max_abs_err(
+                raw[q], sj._from_ntt_plain(prm, want)))
+        return v_ct, keys
+
+    fast = get_fast_expansion_testing_params()
+    pack_check(fast, 2, "version 0")
+    pack_ms = {}
+    for nq in (1, 16):
+        v_ct, keys = pack_check(params, nq, f"version {params.version}")
+        pack_ms[nq] = cuda_ms(lambda: sj.pack_queries(params, v_ct, keys,
+                                                      raw=True), 20)
+        if nq == 1:
+            plain_ms = cuda_ms(lambda: [sj._from_ntt_plain(
+                params, sj.pack_plain(params, v_ct[0, j], keys[0]))
+                for j in range(params.instances)], 2)
+            n, tc = params.n, params.t_conv
+            # per (instance, column): per r, 1 + t_conv forward transforms,
+            # r shift steps of 1 inverse + t_conv forward (version 1); the
+            # final inverse of n+1 rows; (n+1) rows x 2z multiply-adds a digit
+            steps = sum(range(n)) if params.version else 0
+            per_block = (transform_ops(n * (1 + tc) + steps * (1 + tc) + n + 1,
+                                       params)
+                         + (n + steps) * tc * (n + 1) * 2 * z * 2)
+            bnd = bound(nbytes(v_ct) + nbytes(*keys[0])
+                        + 8 * params.instances * (n + 1) * n * z,
+                        params.instances * n * per_block, INT32_OPS_PER_S)
+            shape = (f"{tuple(v_ct.shape)} int64 -> ({params.instances}, "
+                     f"{n + 1}, {n}, {z}) int64 (pack + from_ntt)")
+    table.timed("pack", "sdk_tpu_torch/csrc/pack.cu",
+                "sdk_tpu/ops/spiral_jax.py:878", shape, pack_ms[1], plain_ms,
+                bnd, None, nq16_ms=pack_ms[16])
+    log(f"[kernels] G equals its plain version (version 0 and 1, NQ = 1 and "
+        f"16, NTT and raw outputs); NQ=1 {pack_ms[1]:.4f} ms, NQ=16 "
+        f"{pack_ms[16]:.4f} ms")
+
+    # ---- H: 256 items into a dense tensor and into compact planes at cap 8
+    K = min(256, params.num_items() // 4, 8 * num_per)   # 256 at 1 GiB
+    raw = torch.from_numpy(gen.integers(
+        0, 256, (K, it, params.bytes_per_chunk()), dtype=np.uint8)).to(dev)
+    raw[3] = 0
+    ing_ms = {}
+
+    def ingest_check(prm, target_shape, idxs, rawb, label: str):
+        idxs = np.asarray(sorted(idxs))
+        npr = 1 << prm.db_dim_2
+        bins, cols = idxs % npr, idxs // npr
+        got = torch.zeros(target_shape, dtype=torch.int8, device=dev)
+        want = torch.zeros(target_shape, dtype=torch.int8, device=dev)
+        ing.ingest_into(prm, got, bins, cols, rawb)
+        sj.db_write_items(prm, want, bins, cols, ing.ingest_plain(prm, rawb))
+        table.check("ingest", label, 0 if torch.equal(got, want) else 1)
+        table.check("ingest", label + ", residues", max_abs_err(
+            ing.ingest_items_device(prm, rawb), ing.ingest_plain(prm, rawb)))
+        ms = cuda_ms(lambda: ing.ingest_into(prm, got, bins, cols, rawb), 10)
+        plain = cuda_ms(lambda: sj.db_write_items(
+            prm, want, bins, cols, ing.ingest_plain(prm, rawb)), 2)
+        del got, want
+        return ms, plain
+
+    dense_shape = sj.db_shape(params)
+    ms, plain_ms = ingest_check(params, dense_shape, range(2 * K, 3 * K), raw,
+                                f"{K} neighbouring items, dense")
+    ing_ms["scattered"] = ingest_check(
+        params, dense_shape, gen.choice(params.num_items(), K, replace=False),
+        raw, f"{K} scattered items, dense")[0]
+    ing_ms["compact"] = ingest_check(
+        params, sj.compact_shape(params, 8), range(K), raw,
+        f"{K} items, compact cap 8")[0]
+    p16 = params_from_json(P16)
+    raw16 = torch.from_numpy(gen.integers(
+        0, 256, (7, p16.instances * p16.n * p16.n, p16.bytes_per_chunk()),
+        dtype=np.uint8)).to(dev)
+    ingest_check(p16, sj.db_shape(p16), [0, 1, 2, 5, 9, 14, 15], raw16,
+                 "p = 16, 7 items, dense")
+    out_bytes = K * it * 2 * z * 4
+    table.timed("ingest", "sdk_tpu_torch/csrc/ingest.cu",
+                "sdk_tpu/kv/ingest.py:61",
+                f"{tuple(raw.shape)} uint8 -> {out_bytes} int8 limbs in place "
+                f"in the dense DB tensor {dense_shape}, {K} neighbouring "
+                f"items (a bulk load's flush); scattered items and compact "
+                f"planes in the other keys",
+                ms, plain_ms,
+                bound(nbytes(raw) + out_bytes + 16 * K,
+                      K * transform_ops(it, params), INT32_OPS_PER_S), None,
+                scattered_items_ms=ing_ms["scattered"],
+                compact_cap8_ms=ing_ms["compact"])
+    log(f"[kernels] H equals its plain version (dense, compact cap 8, p = 16; "
+        f"limbs in place and residues); {K} neighbouring items {ms:.4f} ms, "
+        f"scattered {ing_ms['scattered']:.4f} ms, compact "
+        f"{ing_ms['compact']:.4f} ms")
+
 
 
 def random_rows(params, gen, idxs) -> dict:
@@ -669,15 +891,19 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     gen = np.random.default_rng(SEED + 1)
     step = n_items // 8         # 4096: the first flush stays compact (cap 64)
     layouts = []
-    for s in range(0, n_items, step):
-        for i, data in random_rows(params, gen, range(s, s + step)).items():
-            srv.update_item_raw(i, data)
-        srv.flush()
-        db = srv.engine.db
-        layouts.append(f"compact cap {db.cap_bin}"
-                       if isinstance(db, sj.CompactDb) else "dense")
-    torch.cuda.synchronize()
+
+    def fill():
+        for s in range(0, n_items, step):
+            for i, data in random_rows(params, gen, range(s, s + step)).items():
+                srv.update_item_raw(i, data)
+            srv.flush()
+            db = srv.engine.db
+            layouts.append(f"compact cap {db.cap_bin}"
+                           if isinstance(db, sj.CompactDb) else "dense")
+
+    _, fill_counts = launches.run(fill)
     out["fill_s"] = time.perf_counter() - t0
+    out["fill_launches"] = {k: v for k, v in fill_counts.items() if v}
     out["layouts_after_each_flush"] = layouts
     if not layouts[0].startswith("compact") or layouts[1] != "dense":
         raise AssertionError(f"fill: want compact then dense, got "
@@ -706,47 +932,339 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
 
     uids = sessions.setup(srv)
     reads, counts = launches.run(lambda: sessions.drive(
-        srv, uids, list(KEYS), values, 192, 6, 3))
+        srv, uids, list(KEYS), values, 192, 5, 2))
     out.update(reads, launches=counts,
                max_memory_allocated=torch.cuda.max_memory_allocated(dev),
                recall_at_1=1.0)
-    log(f"[full] 6 single reads through private_read and 3 x 16-query "
+    log(f"[full] 5 single reads through private_read and 2 x 16-query "
         f"batches decoded; single median {reads['single_read_ms_median']:.2f} "
         f"ms, batch {reads['batch16_ms_median']:.2f} ms")
-    out["stages_ms"] = stage_breakdown(srv, sessions.blob(uids, 0, KEYS[0], 250))
+    out["stages_ms"] = stage_breakdown(
+        srv, [sessions.blob(uids, 0, KEYS[0], 250)])
+    out["stages_ms_batch16"] = stage_breakdown(srv, [
+        sessions.blob(uids, 1 + i // 4, KEYS[i % 3], 260 + i)
+        for i in range(16)])
     del srv
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def stage_breakdown(srv, blob: bytes) -> dict:
-    """Median wall ms of each stage of one read, synchronised per stage
-    (for the breakdown only; the launches are not counted)."""
+def stage_breakdown(srv, blobs: list) -> dict:
+    """Median wall ms of each stage of one dispatch of ``blobs`` (a single
+    read, or a batch: one expansion per query, then one scan, one fold and
+    one pack + encode for all), synchronised per stage (for the breakdown
+    only; the launches are not counted)."""
     from sdk_tpu_torch.ops import spiral as sj
 
     eng = srv.engine
-    pp_dev, query = srv._parse_request(blob)
+    parsed = [srv._parse_request(b) for b in blobs]
+    nq = len(parsed)
     times: dict[str, list] = {"expand": [], "scan": [], "fold": [],
                               "pack_encode": []}
     for _ in range(5):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        q_arr, v_folding = eng.expand_query(pp_dev, query)
+        expanded = [eng.expand_query(pp, q) for pp, q in parsed]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        inter = sj.firstdim_multiply(eng.params, eng.db, q_arr)
+        q_all = torch.stack([q for q, _ in expanded], dim=-2)
+        q_all = q_all.reshape(q_all.shape[:3] + (2 * nq,))
+        inter = sj.firstdim_multiply(eng.params, eng.db, q_all)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        folded = eng._fold(inter, v_folding)
+        folded = eng._fold(inter.reshape(inter.shape[:-1] + (nq, 2)),
+                           torch.stack([v for _, v in expanded]))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        eng._pack_encode(folded, pp_dev["v_packing"])
+        eng._pack_encode(folded, [pp["v_packing"] for pp, _ in parsed])
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         for k, v in zip(times, (t1 - t, t2 - t1, t3 - t2, t4 - t3)):
             times[k].append(v * 1e3)
     return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def timed_s(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_service(params, sessions: Sessions, dev, launches: Launches,
+                  n_keys: int = 300, n_rows: int = 4200) -> dict:
+    """The 1 GiB bucket behind its HTTP service on localhost, driven through
+    sdk_tpu_torch.clients only. Every step raises on a wrong answer."""
+    from sdk_tpu_torch.clients.api import API, ApiError
+    from sdk_tpu_torch.clients.bloom import BloomFilter
+    from sdk_tpu_torch.clients.bucket_service import BucketService
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.server.http import serve
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    gen = np.random.default_rng(SEED + 8)
+    n_items = params.num_items()
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = SpiralKvServerTorch(params, key_storage_policy="full")
+    httpd = serve(srv, 0, block=False, batch_window_ms=BATCH_WINDOW_MS)
+    base = f"http://localhost:{httpd.server_address[1]}"
+    out: dict = {"batch_window_ms": BATCH_WINDOW_MS}
+    try:
+        api = API("", base)
+        bucket = BucketService("", base).connect()
+        if bucket.params.num_items() != n_items:
+            raise AssertionError("the client read other params from /meta")
+
+        # sessions: four through the JSON /setup, one through the presigned
+        # upload flow; the Bucket client sets its own up at its first read
+        uids = [api.setup("", pp) for pp in sessions.pp[:4]]
+        uids.append(api.setup_presigned("", sessions.pp[4]))
+        if not all(api.check(u) for u in uids) or api.check("0" * 36):
+            raise AssertionError("/check disagrees with the sessions set up")
+
+        # /write a few hundred keys, read them back privately
+        keys = distinct_row_keys(n_items, n_keys)
+        values = {k: bytes(gen.integers(0, 256, 2048, dtype=np.uint8))
+                  for k in keys}
+
+        def write_and_read():
+            bucket.write(values)
+            lat = []
+            for k in keys[:5]:
+                t = time.perf_counter()
+                got = bucket.private_read([k])
+                lat.append((time.perf_counter() - t) * 1e3)
+                if got != [values[k]]:
+                    raise AssertionError(f"private read of {k!r} over HTTP "
+                                         f"returned the wrong value")
+            if bucket.private_read(["never-written"]) != [None]:
+                raise AssertionError("an absent key did not read as absent")
+            return lat
+
+        lat, counts = launches.run(write_and_read)
+        if min(counts["ingest"], counts["fold_round"], counts["pack"]) <= 0:
+            raise AssertionError(f"the service did not run H, F, G: {counts}")
+        meta = api.meta()
+        out["after_write"] = {
+            "keys": n_keys, "layout": meta["index_layout"],
+            "sparse_expansion": meta["sparse_expansion"],
+            "bucket_client_read_ms_all": lat[1:], "launches": counts}
+        log(f"[service] /setup x5 (one presigned), /write of {n_keys} keys, "
+            f"6 private reads through the Bucket client decoded; index "
+            f"{meta['index_layout']}; client-side read (query + HTTP + decode) "
+            f"median {float(np.median(lat[1:])):.2f} ms")
+
+        # single reads and 16 readers at once, over HTTP and in process
+        single = [sessions.blob(uids, 4, keys[i], 300 + i) for i in range(5)]
+        batch_keys = [keys[(7 * i) % n_keys] for i in range(16)]
+        batch = [sessions.blob(uids, i // 4, k, 340 + i)
+                 for i, k in enumerate(batch_keys)]
+
+        def http_single():
+            lat = []
+            for i, b in enumerate(single):
+                t = time.perf_counter()
+                resp = api.private_read("", [b])[0]
+                lat.append((time.perf_counter() - t) * 1e3)
+                check_value(sessions.clients[4], resp, keys[i], values[keys[i]])
+            return lat
+
+        http_lat, single_counts = launches.run(http_single)
+        per_read = {k: v // len(single) for k, v in single_counts.items() if v}
+
+        def http_16():
+            results: dict = {}
+            errors: list = []
+            gate = threading.Barrier(16)
+
+            def reader(i):
+                try:
+                    gate.wait()
+                    results[i] = api.private_read("", [batch[i]])[0]
+                except BaseException as e:  # noqa: BLE001 - reported below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=reader, args=(i,))
+                       for i in range(16)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = (time.perf_counter() - t) * 1e3
+            if errors:
+                raise errors[0]
+            return wall, [results[i] for i in range(16)]
+
+        stats0 = api._get(base + "/metrics")["read_coalescer"]
+        walls = []
+        for _ in range(3):
+            (wall, resps), batch_counts = launches.run(http_16)
+            walls.append(wall)
+            for i, (k, r) in enumerate(zip(batch_keys, resps)):
+                check_value(sessions.clients[i // 4], r, k, values[k])
+        stats = api._get(base + "/metrics")["read_coalescer"]
+        if stats["max_batch"] <= 1:
+            raise AssertionError(f"16 concurrent readers were not coalesced: "
+                                 f"{stats}")
+        direct, direct_counts = launches.run(lambda: [timed_s(
+            lambda: srv.private_read_blobs(batch))[1] * 1e3 for _ in range(3)])
+        direct1 = [timed_s(lambda b=b: srv.private_read_blobs([b]))[1] * 1e3
+                   for b in single]
+        if srv.private_read_blobs(batch) != resps:
+            raise AssertionError("coalesced responses differ from one batch's")
+        out["reads_compact"] = {
+            "http_single_ms_all": http_lat,
+            "http_single_ms_median": float(np.median(http_lat)),
+            "http_16_readers_wall_ms_all": walls,
+            "http_16_readers_wall_ms_median": float(np.median(walls)),
+            "direct_single_ms_median": float(np.median(direct1)),
+            "direct_batch16_ms_all": direct,
+            "direct_batch16_ms_median": float(np.median(direct)),
+            "read_coalescer_before": stats0, "read_coalescer": stats,
+            "launches_per_single_read": per_read,
+            "launches_last_16_readers": {k: v for k, v in batch_counts.items()
+                                         if v},
+            "launches_per_batch16": {k: v // 3 for k, v in
+                                     direct_counts.items() if v},
+            "stages_ms_single": stage_breakdown(srv, single[:1]),
+            "stages_ms_batch16": stage_breakdown(srv, batch)}
+        log(f"[service] single read over HTTP median "
+            f"{out['reads_compact']['http_single_ms_median']:.2f} ms, in "
+            f"process {out['reads_compact']['direct_single_ms_median']:.2f} ms;"
+            f" 16 readers at once {out['reads_compact']['http_16_readers_wall_ms_median']:.2f}"
+            f" ms (coalescer {stats}), one 16-batch in process "
+            f"{out['reads_compact']['direct_batch16_ms_median']:.2f} ms; "
+            f"launches per single read {per_read}")
+
+        # the other routes
+        bloom = BloomFilter.from_bytes(base64.b64decode(
+            api._get(base + "/bloom")["bloom"]))
+        if not all(bloom.lookup(k) for k in keys) or bloom.lookup("absent-key"):
+            raise AssertionError("/bloom does not hold the written keys")
+        if api._get(base + "/list-keys") != sorted(keys):
+            raise AssertionError("/list-keys differs from the written keys")
+        if bucket.private_key_intersect([keys[3], "absent-key"]) != [keys[3]]:
+            raise AssertionError("private_key_intersect is wrong")
+        bucket.rename("smoke-bucket")
+        meta = api.meta()
+        if meta["name"] != "smoke-bucket" or meta["global_version"] < 1:
+            raise AssertionError(f"/meta after /modify: {meta}")
+
+        def checkpoint(label: str) -> dict:
+            """save_to_dir, restore into a new bucket, same bytes back."""
+            probe = batch[:4]
+            first = srv.private_read_blobs(probe)
+            with tempfile.TemporaryDirectory() as tmp:
+                _, save_s = timed_s(lambda: srv.save_to_dir(tmp))
+                size = dir_bytes(tmp)
+                other = SpiralKvServerTorch(params, key_storage_policy="full")
+                _, restore_s = timed_s(lambda: other.restore_from_dir(tmp))
+            for uid, pp in zip(uids, sessions.pp):
+                other.setup_raw(pp, uid)
+            second = other.private_read_blobs(probe)
+            same = (second == first
+                    and other.meta()["index_layout"] == srv.meta()["index_layout"]
+                    and other.list_keys() == srv.list_keys())
+            del other
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not same:
+                raise AssertionError(f"{label}: the restored bucket answers "
+                                     f"with other bytes")
+            log(f"[service] {label} checkpoint: {size} bytes saved in "
+                f"{save_s:.2f} s, restored in {restore_s:.2f} s; the restored "
+                f"bucket's responses equal the first's byte for byte")
+            return {"bytes": size, "save_s": save_s, "restore_s": restore_s}
+
+        if meta["index_layout"] != "compact":
+            raise AssertionError("the bucket migrated before the compact "
+                                 "checkpoint")
+        out["checkpoint_compact"] = checkpoint("compact")
+
+        # /update-row past 1/8 of the items: the next flush migrates
+        taken = set(srv._populated_items)
+        free = np.array(sorted(set(range(n_items)) - taken))
+        rows = random_rows(params, gen, sorted(
+            gen.choice(free, n_rows - len(taken), replace=False)))
+        items = [int(i).to_bytes(4, "big") + data for i, data in rows.items()]
+
+        def update_rows():
+            for s0 in range(0, len(items), 256):
+                body = b"".join(len(b).to_bytes(4, "big") + b
+                                for b in items[s0:s0 + 256])
+                r = api._post(base + "/update-row", body, compress=False)
+                if r["largest_update"] != len(items[0]):
+                    raise AssertionError(f"/update-row: {r}")
+            resp = api.private_read("", [single[0]])[0]
+            check_value(sessions.clients[4], resp, keys[0], values[keys[0]])
+
+        (_, update_s), counts = launches.run(lambda: timed_s(update_rows))
+        if api.meta()["index_layout"] != "dense" or counts["scan"] <= 0:
+            raise AssertionError("the bucket did not migrate to dense")
+        some = sorted(rows)[17]
+        resp = api.private_read("", [uids[4].encode() + sessions.clients[4]
+                                     .generate_query(some).serialize(params)])[0]
+        if sessions.clients[4].decode_response(resp)[:len(rows[some])] \
+                != rows[some]:
+            raise AssertionError("a row sent through /update-row reads wrong")
+        http_lat_dense = http_single()
+        (wall, resps), _ = launches.run(http_16)
+        for i, (k, r) in enumerate(zip(batch_keys, resps)):
+            check_value(sessions.clients[i // 4], r, k, values[k])
+        out["dense"] = {
+            "rows_sent": len(items), "update_row_and_migrate_s": update_s,
+            "launches": {k: v for k, v in counts.items() if v},
+            "http_single_ms_median": float(np.median(http_lat_dense)),
+            "http_16_readers_wall_ms": wall,
+            "stages_ms_single": stage_breakdown(srv, single[:1]),
+            "stages_ms_batch16": stage_breakdown(srv, batch)}
+        log(f"[service] /update-row of {len(items)} rows + the migrating "
+            f"flush + a read in {update_s:.2f} s; dense: single read over "
+            f"HTTP median {out['dense']['http_single_ms_median']:.2f} ms, 16 "
+            f"readers {wall:.2f} ms")
+        out["checkpoint_dense"] = checkpoint("dense")
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+
+        # /clear: reads decode to absent, compact again, memory released
+        before = torch.cuda.memory_allocated(dev)
+        bucket.clear_entire_bucket()
+        gc.collect()
+        after = torch.cuda.memory_allocated(dev)
+        meta = api.meta()
+        if bucket.private_read([keys[0]]) != [None] \
+                or meta["index_layout"] != "compact" \
+                or not isinstance(srv.engine.db, sj.CompactDb) \
+                or before - after < int(np.prod(sj.db_shape(params))) // 2 \
+                or api._get(base + "/list-keys") != []:
+            raise AssertionError(f"/clear: meta {meta}, memory {before} -> "
+                                 f"{after}")
+        out["clear"] = {"memory_allocated_before": before,
+                        "memory_allocated_after": after}
+        # /destroy: 404 from then on
+        bucket.destroy_entire_bucket()
+        try:
+            api.meta()
+        except ApiError as e:
+            if e.code != 404 or not srv.destroyed:
+                raise
+        else:
+            raise AssertionError("a destroyed bucket still answers")
+        log(f"[service] /clear: reads absent, compact again, memory "
+            f"{before} -> {after}; /destroy: 404 after")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def dev_u32(gen: torch.Generator, shape, dev) -> torch.Tensor:
@@ -853,11 +1371,15 @@ def phase_doublepir_kernels(dev, table: KernelTable,
         name, "sdk_tpu_torch/csrc/dp_matmul_u32.cu",
         "sdk_tpu/doublepir/jax_kernels.py:35",
         f"msg0: packed a_1t (4, {l3 // 3}) words of three 10-bit fields @ A2 "
-        f"({l3}, {n}) u32; h_2 (the same a_1t @ ({l3}, 8)) in h2_ms",
+        f"({l3}, {n}) u32; h_2 (the same a_1t @ ({l3}, 8)) in h2_*",
         cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, a2p), 20),
         cuda_ms(lambda: dk.matmul_u32_packed_plain(a_1t, a2p), 3),
         bound(nbytes(a_1t, a2p) + 4 * 4 * n, 2 * 4 * l3 * n, INT32_OPS_PER_S),
-        h2_ms=cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, q2), 20))
+        h2_ms=cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, q2), 20),
+        h2_plain_ms=cuda_ms(lambda: dk.matmul_u32_packed_plain(a_1t, q2), 3),
+        **{f"h2_{k}": v for k, v in bound(
+            nbytes(a_1t, q2) + 4 * 4 * 8, 2 * 4 * l3 * 8,
+            INT32_OPS_PER_S).items()})
 
 
 def planted_bits(gen: np.random.Generator, num_entries: int) -> np.ndarray:
@@ -1144,6 +1666,7 @@ def main() -> int:
     phase_kernels(params, dev, table)
     log("[kernels] A, A', B, D equal their plain versions at the main "
         "path's shapes")
+    phase_fused_kernels(params, dev, table)
     phase_small_configs(dev)
     t = time.perf_counter()
     sessions = Sessions(params)
@@ -1151,6 +1674,7 @@ def main() -> int:
     launches = Launches()
     lifecycle = phase_lifecycle(params, sessions, dev, table, launches)
     full = phase_full(params, sessions, dev, table, launches)
+    service = phase_service(params, sessions, dev, launches)
     del sessions
     phase_doublepir_kernels(dev, table)
     log("[dp kernels] K (one plane, pair, colsum row, row-batch select) and "
@@ -1168,6 +1692,7 @@ def main() -> int:
     log("[report] " + json.dumps({"card": card, "build_s": build_s,
                                   "launches": launches.total,
                                   "lifecycle": lifecycle, "full": full,
+                                  "service": service,
                                   "checklist": checklist}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))

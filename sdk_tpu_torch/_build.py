@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
                             "matmul_mod": 0, "scan": 0, "encode": 0,
                             "scan_compact": 0, "expand_round": 0,
-                            "dp_dot_i8": 0, "dp_matmul_u32": 0}
+                            "dp_dot_i8": 0, "dp_matmul_u32": 0,
+                            "fold_round": 0, "pack": 0, "ingest": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,12 @@ _SIGNATURES = {
                                     _LL, _I, _P)),
     "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
                                             _P)),
+    "sdk_fold_round": ("fold_round", (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                      _I, _I, _I, _U, _U, _ULL, _P)),
+    "sdk_pack": ("pack", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U,
+                          _U, _ULL, _P)),
+    "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL,
+                              _LL, _I, _U, _U, _P)),
 }
 
 _lock = threading.Lock()

@@ -2,11 +2,13 @@
 
 Ports sdk_tpu/kv/ingest.py (reference lib/server/src/db/loading.rs:278-377).
 Each item splits into instances*n*n chunks; chunk bytes become mod-p
-coefficients, are recentered into mod-Q, NTT'd (kernel group A) and
-written, as 7-bit limbs, at the item's (dim0, num_per) coordinates of the
-dense DB tensor, or at its (bin, slot) of the compact one
-(spiral.CompactDb; slot bookkeeping in CompactSlots). compact_to_dense
-migrates a compact index to the dense layout.
+coefficients, are recentered into mod-Q, NTT'd and written, as 7-bit limbs,
+at the item's (dim0, num_per) coordinates of the dense DB tensor, or at its
+(bin, slot) of the compact one (spiral.CompactDb; slot bookkeeping in
+CompactSlots). On a CUDA tensor all of that is one launch of kernel H
+(csrc/ingest.cu) per flush chunk; on a CPU tensor ingest_plain and
+spiral.db_write_items. compact_to_dense migrates a compact index to the
+dense layout.
 """
 
 from __future__ import annotations
@@ -17,20 +19,30 @@ import torch
 from ..arith import log2_exact
 from ..params import Params
 
-from ..ops.ntt import ntt_forward
+from .. import _build
+from ..ops.ntt import ntt_forward_plain
+from ..ops.ntt import tables as ntt_tables
 from ..ops.spiral import (NUM_LIMBS, CompactDb, compact_shape, db_shape,
                           db_write_items)
 
-# items ingested per flush step: bounds the flush's device temporaries
-# (~0.6 MB per item at the 1 GiB bucket) whatever the number pending
+# items ingested per flush step: one launch of kernel H each (the plain
+# version's temporaries are ~0.6 MB per item at the 1 GiB bucket)
 FLUSH_CHUNK_ITEMS = 1024
 
 
-def ingest_items_device(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor:
-    """(K, instances*trials, bytes_per_chunk) uint8 zero-padded chunk bytes
-    -> (K, instances*trials, crt, poly_len) int32 NTT residues, computed on
-    raw_bytes' device. Any power-of-two p: logp-bit fields are read from
-    each chunk's little-endian bitstream."""
+def _check_raw_bytes(params: Params, raw_bytes: torch.Tensor) -> None:
+    if (raw_bytes.dtype != torch.uint8 or raw_bytes.ndim != 3
+            or raw_bytes.shape[2] != params.bytes_per_chunk()):
+        raise ValueError(f"ingest: expected uint8 (K, chunks, "
+                         f"{params.bytes_per_chunk()}), got {raw_bytes.dtype} "
+                         f"{tuple(raw_bytes.shape)}")
+
+
+def ingest_plain(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor:
+    """ingest_items_device in plain PyTorch (the plain forward NTT, never a
+    kernel). Any power-of-two p: logp-bit fields are read from each chunk's
+    little-endian bitstream."""
+    _check_raw_bytes(params, raw_bytes)
     logp = log2_exact(params.pt_modulus)
     n_coeffs = params.modp_words_per_chunk()
     if logp == 8:
@@ -52,7 +64,87 @@ def ingest_items_device(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor
     chans = centered.unsqueeze(-2) % q               # (K, chunks, crt, nc)
     pad = params.poly_len - chans.shape[-1]
     chans = torch.nn.functional.pad(chans, (0, pad)).to(torch.int32)
-    return ntt_forward(params, chans)
+    return ntt_forward_plain(params, chans)
+
+
+def _ingest_launch(params: Params, raw_bytes: torch.Tensor, target=None,
+                   bins=None, cols=None):
+    """Kernel H (csrc/ingest.cu): with ``target`` (the dense DB tensor or the
+    compact planes) the limbs of item k are written in place at num_per bin
+    bins[k], column cols[k], and nothing is returned; without it the NTT
+    residues (K, chunks, crt, z) int32 are."""
+    _check_raw_bytes(params, raw_bytes)
+    raw_bytes = raw_bytes.contiguous()
+    K, chunks, chunk_bytes = raw_bytes.shape
+    tb = ntt_tables(params, raw_bytes.device)
+    out = None
+    if target is None:
+        out = torch.empty((K, chunks, params.crt_count, params.poly_len),
+                          dtype=torch.int32, device=raw_bytes.device)
+        bins = cols = torch.zeros(1, dtype=torch.int64,
+                                  device=raw_bytes.device)
+        jw, num_per = 0, 0
+        _build.require_cuda(raw_bytes, tb)
+    else:
+        num_per = 1 << params.db_dim_2
+        jw = target.shape[3]
+        if (target.dtype != torch.int8 or target.ndim != 8
+                or tuple(target.shape) != (
+                    params.crt_count, params.poly_len, NUM_LIMBS, jw,
+                    params.instances, params.n * params.n, num_per, 4)
+                or chunks != params.instances * params.n * params.n
+                or params.crt_count != 2):
+            raise ValueError(f"ingest: bad index tensor {target.dtype} "
+                             f"{tuple(target.shape)}")
+        # checked on the host: the pairs come from the host's bookkeeping
+        bins = np.asarray(bins, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        if bins.shape != (K,) or cols.shape != (K,):
+            raise ValueError("ingest: one (bin, column) pair per item")
+        if K and (bins.min() < 0 or bins.max() >= num_per or cols.min() < 0
+                  or cols.max() >= 4 * jw):
+            raise ValueError("ingest: (bin, column) outside the index")
+        bins = torch.from_numpy(bins).to(raw_bytes.device)
+        cols = torch.from_numpy(cols).to(raw_bytes.device)
+        _build.require_cuda(raw_bytes, tb, target, bins, cols)
+    q0, q1 = params.moduli
+    _build.launch("ingest", "sdk_ingest", raw_bytes.device,
+                  raw_bytes.data_ptr(), bins.data_ptr(), cols.data_ptr(),
+                  tb.data_ptr(),
+                  None if target is None else target.data_ptr(),
+                  None if out is None else out.data_ptr(), K, chunks,
+                  chunk_bytes, params.modp_words_per_chunk(),
+                  log2_exact(params.pt_modulus), jw, num_per,
+                  params.poly_len_log2, q0, q1, _build.stream_of(raw_bytes))
+    return out
+
+
+def ingest_items_device(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor:
+    """(K, instances*trials, bytes_per_chunk) uint8 zero-padded chunk bytes
+    -> (K, instances*trials, crt, poly_len) int32 NTT residues, computed on
+    raw_bytes' device: kernel H on a CUDA tensor, ingest_plain on a CPU
+    tensor."""
+    if raw_bytes.device.type == "cuda":
+        return _ingest_launch(params, raw_bytes)
+    if raw_bytes.device.type == "cpu":
+        return ingest_plain(params, raw_bytes)
+    raise ValueError(f"unsupported device {raw_bytes.device}")
+
+
+def ingest_into(params: Params, target: torch.Tensor, bins, cols,
+                raw_bytes: torch.Tensor) -> None:
+    """Ingest K items' chunk bytes and write their limbs in place into
+    ``target`` (the dense DB tensor or the compact planes) at num_per bin
+    bins[k] and column cols[k]; the (bin, column) pairs are distinct. One
+    launch of kernel H on a CUDA tensor; ingest_plain + db_write_items on a
+    CPU tensor."""
+    if target.device.type == "cuda":
+        _ingest_launch(params, raw_bytes, target, bins, cols)
+    elif target.device.type == "cpu":
+        db_write_items(params, target, bins, cols,
+                       ingest_plain(params, raw_bytes))
+    else:
+        raise ValueError(f"unsupported device {target.device}")
 
 
 class CompactSlots:
@@ -92,6 +184,17 @@ class CompactSlots:
     def clear(self) -> None:
         self.slot_of.clear()
         self.bin_count[:] = 0
+
+    def to_state(self) -> dict:
+        return {"cap_bin": self.cap_bin,
+                "slot_of": {str(k): v for k, v in self.slot_of.items()}}
+
+    def load_state(self, state: dict) -> None:
+        self.cap_bin = state["cap_bin"]
+        self.slot_of = {int(k): v for k, v in state["slot_of"].items()}
+        self.bin_count[:] = 0
+        for idx in self.slot_of:
+            self.bin_count[idx % self.num_per] += 1
 
 
 def compact_grow(params: Params, db: CompactDb, new_cap: int) -> CompactDb:
@@ -164,10 +267,9 @@ class DbUpdateBuffer:
         tensors (the compact planes and idx_j too). That is safe without
         donation or copies because every read and every flush is enqueued
         on the same CUDA stream, so the stream orders this write after the
-        scans already in flight and before the ones dispatched later. The
-        limb decompose runs on the device, and rows go through in chunks of
-        FLUSH_CHUNK_ITEMS, so a full-bucket fill never holds a second
-        index-sized temporary."""
+        scans already in flight and before the ones dispatched later. Rows
+        go through in chunks of FLUSH_CHUNK_ITEMS, one launch of kernel H
+        each, which writes the limbs straight into the index."""
         if not self.pending_raw:
             return db
         params = self.params
@@ -192,7 +294,6 @@ class DbUpdateBuffer:
             e = s + FLUSH_CHUNK_ITEMS
             raw = torch.from_numpy(np.stack(
                 [self.pending_raw[i] for i in idxs[s:e]])).to(self.device)
-            db_write_items(params, target, bins[s:e], cols[s:e],
-                           ingest_items_device(params, raw))
+            ingest_into(params, target, bins[s:e], cols[s:e], raw)
         self.pending_raw.clear()
         return db

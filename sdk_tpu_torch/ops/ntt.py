@@ -6,11 +6,12 @@ sdk_tpu/ops/ntt_jax.py and the host oracle sdk_tpu/ntt_host.py. A CUDA
 tensor runs the hand-written kernel (csrc/ntt.cu); a CPU tensor runs the
 plain version beside it.
 
-Accepted forward input range: [0, 4q_c), which covers every input on the
-serving path (reduced residues and gadget digits < 2^19). On that range the
-lazy Harvey butterflies of the kernel and the exact butterflies of the plain
-version both give the exact transform. (The JAX function also pins inputs
-up to 2^32, tests/test_ntt_jax.py:48; the port does not take that range.)
+The forward transform takes any uint32 bit pattern and returns the exact
+transform of the input mod q_c: the plain version reduces every input first,
+the kernel's lazy Harvey butterflies take [0, 4q_c) and reduce what lies
+above as they load it. (The JAX function is the same on [0, 4q_c); above
+that it runs its lazy butterflies unreduced and returns words that are not
+canonical, tests/test_ntt_jax.py:48 pins them against its host oracle only.)
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def ntt_forward_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     n = params.poly_len
     q = moduli_column(params, x.device, 2)            # (crt, 1, 1)
     w_all = tables(params, x.device)[:, 0].to(torch.int64) & 0xFFFFFFFF
-    op = x.to(torch.int64) % q.reshape(-1, 1)
+    op = (x.to(torch.int64) & 0xFFFFFFFF) % q.reshape(-1, 1)
     lead = op.shape[:-1]
     for mm in range(params.poly_len_log2):
         m = 1 << mm
@@ -91,7 +92,8 @@ def ntt_inverse_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def ntt_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: int32 (..., crt, n) with values < 4q_c -> canonical NTT residues."""
+    """x: int32 (..., crt, n) holding any uint32 bit patterns -> canonical
+    NTT residues of the values mod q_c."""
     if x.device.type == "cuda":
         return _launch(params, x, inverse=False)
     if x.device.type == "cpu":

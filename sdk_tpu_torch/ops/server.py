@@ -48,11 +48,15 @@ def index_hbm_bytes(params: Params) -> int:
 
 def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
     """Estimated device bytes next to the index while an nq-query batch is
-    in flight: the scan's query and output columns, every query's folding
-    keys, and one query's expansion and fold temporaries (the per-query
-    stages run one query at a time). The fold's round-0 digits dominate:
-    (trials*instances*num_per/2) x 2*2*t_gsw polys as int64 digits, int32
-    NTT residues and int64 products."""
+    in flight. The scan's query and output columns; every query's folding
+    keys and their negations; one query's expansion temporaries (expansion
+    runs one query at a time); and the batch's fold input, which is made for
+    all nq queries at once: the scan output regrouped per query, its inverse
+    NTT (int32 residues, three live copies with the regrouping), and the
+    CRT-composed int64 values with the compose's temporaries (five live
+    arrays of that size, the first round's output included). The fused fold
+    and pack kernels keep their digit polynomials in shared memory, so the
+    rounds add nothing."""
     crt, z = params.crt_count, params.poly_len
     dim0 = 1 << params.db_dim_1
     num_per = 1 << params.db_dim_2
@@ -60,7 +64,7 @@ def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
     scan = crt * z * (m + dim0) * 2 * nq * 4
     keys = nq * params.db_dim_2 * 2 * 2 * params.t_gsw * crt * z * 4 * 2
     expand = (1 << params.g()) * 2 * crt * z * 4 * 8
-    fold = (m // 2) * 4 * params.t_gsw * z * (8 + crt * 4 + crt * 8)
+    fold = nq * m * 2 * z * (3 * crt * 4 + 5 * 8)
     return scan + keys + expand + fold
 
 
@@ -179,31 +183,48 @@ class SpiralServerTorch:
                                     device=self.device)
         return q_arr, v_folding
 
-    def _fold(self, inter: torch.Tensor, v_folding: torch.Tensor):
-        """One query's scan columns (crt, z, inst, trials, num_per, 2) ->
-        folded raw cts (inst, trials, 2, 1, z)."""
+    def _fold(self, inter: torch.Tensor, v_foldings: torch.Tensor):
+        """The batch's scan columns (crt, z, inst, trials, num_per, NQ, 2)
+        and folding keys (NQ, db_dim_2, 2, 2*t_gsw, crt, z) -> folded raw cts
+        (NQ, inst, trials, 2, 1, z): every query folds in the same launch of
+        kernel F per round (server_jax.py:565-603)."""
         params = self.params
-        crt, z, inst, trials, npr, _ = inter.shape
-        cts = inter.permute(2, 3, 4, 5, 0, 1).reshape(
-            inst * trials, npr, 2, 1, crt, z)
-        v_neg = sj.get_v_folding_neg(params, v_folding, self.gadget_ntt)
+        crt, z, inst, trials, npr, nq, _ = inter.shape
+        cts = inter.permute(5, 2, 3, 4, 6, 0, 1).reshape(
+            nq, inst * trials, npr, 2, 1, crt, z)
+        v_neg = sj.get_v_folding_neg(params, v_foldings, self.gadget_ntt)
         folded = sj.fold_ciphertexts(params, sj.from_ntt(params, cts),
-                                     v_folding, v_neg)
-        return folded.reshape(inst, trials, 2, 1, z)
+                                     v_foldings, v_neg)
+        return folded.reshape(nq, inst, trials, 2, 1, z)
 
-    def _pack_encode(self, folded: torch.Tensor, v_packing) -> torch.Tensor:
-        """Folded cts -> the wire response as int32 words on the device."""
-        params = self.params
-        packed = torch.stack([
-            sj.from_ntt(params, sj.pack(params, folded[i], v_packing))
-            for i in range(params.instances)])
-        return self.encode_plan.encode(packed)
+    def _pack_encode(self, folded: torch.Tensor, v_packings: list):
+        """Folded cts (NQ, inst, trials, 2, 1, z) and each query's packing
+        keys -> the wire responses (NQ, words) int32 on the device: one
+        launch of kernel G (pack + from_ntt) for the batch, one of D per
+        query."""
+        packed = sj.pack_queries(self.params, folded, v_packings, raw=True)
+        return torch.stack([self.encode_plan.encode(packed[i])
+                            for i in range(packed.shape[0])])
 
-    def _dispatch_one(self, pp_dev: dict, query: Query) -> torch.Tensor:
-        q_arr, v_folding = self.expand_query(pp_dev, query)
-        inter = sj.firstdim_multiply(self.params, self.db, q_arr)
-        return self._pack_encode(self._fold(inter, v_folding),
-                                 pp_dev["v_packing"])
+    def _dispatch(self, pps: list, queries: list) -> torch.Tensor:
+        """Enqueue a batch: per-query expansion, ONE scan with R = 2*NQ
+        columns (column 2*i + r is row r of query i), one fold and one pack
+        for the whole batch, encode per query. NQ is padded to a power of
+        two with copies of query 0's columns (server_jax.py:644-648), so R
+        always splits into the scan kernel's column blocks; the fillers'
+        columns are dropped after the scan. Returns (NQ, words) int32."""
+        n_real = len(queries)
+        expanded = [self.expand_query(pp, q) for pp, q in zip(pps, queries)]
+        cols = [q_arr for q_arr, _ in expanded]
+        pad_n = 1 << (n_real - 1).bit_length()
+        cols += [cols[0]] * (pad_n - n_real)
+        q_all = torch.stack(cols, dim=-2)                 # (crt, z, dim0, NQ, 2)
+        q_all = q_all.reshape(q_all.shape[:3] + (2 * pad_n,))
+        inter = sj.firstdim_multiply(self.params, self.db, q_all)
+        inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))[..., :n_real, :]
+        v_foldings = torch.stack([v for _, v in expanded])
+        return self._pack_encode(self._fold(inter, v_foldings),
+                                 [pp["v_packing"] for pp in pps])
 
     # -- host orchestration --
 
@@ -216,42 +237,24 @@ class SpiralServerTorch:
     def process_query(self, pp, query: Query) -> bytes:
         self._check_supported()
         with GLOBAL_TIMERS.stage("query_fused"):
-            words = self._dispatch_one(self._pp_dev(pp), query)
-            return self.encode_plan.to_bytes(words)
+            words = self._dispatch([self._pp_dev(pp)], [query])
+            return self.encode_plan.to_bytes(words[0])
 
     def dispatch_queries_batched(self, requests: list):
         """Two-phase batched serving: enqueue the whole batch on the
-        device's current stream and return a zero-arg fetch closure that
-        copies the response words to the host (waiting for the queued work)
-        and returns the response bytes.
+        device's current stream (see _dispatch) and return a zero-arg fetch
+        closure that copies the response words to the host (waiting for the
+        queued work) and returns the response bytes.
 
-        The batch shares ONE scan with R = 2*NQ columns (column 2*i + r is
-        row r of query i); expansion, fold, pack and encode run per query.
-        NQ is padded to a power of two with copies of query 0's columns
-        (server_jax.py:644-648), so R always splits into the scan kernel's
-        column blocks; the fillers' columns are dropped after the scan."""
+        The per-query key material is not stacked: kernel F takes the
+        batch's folding keys, which each expansion makes anew, as one
+        stacked tensor, and kernel G reads each client's packing keys
+        through a table of pointers, so there is no stacked-key cache to
+        budget (the JAX engine's LRU, server_jax.py:183-195)."""
         self._check_supported()
-        params = self.params
         n_real = len(requests)
-        if n_real == 1:
-            pp, query = requests[0]
-            words = self._dispatch_one(self._pp_dev(pp), query)
-            return lambda: [self.encode_plan.to_bytes(words)]
-
-        pps = [self._pp_dev(pp) for pp, _ in requests]
-        expanded = [self.expand_query(pp, q) for pp, (_, q) in
-                    zip(pps, requests)]
-        cols = [q_arr for q_arr, _ in expanded]
-        pad_n = 1 << (n_real - 1).bit_length()
-        cols += [cols[0]] * (pad_n - n_real)
-        q_all = torch.stack(cols, dim=-2)                 # (crt, z, dim0, NQ, 2)
-        q_all = q_all.reshape(q_all.shape[:3] + (2 * pad_n,))
-        inter = sj.firstdim_multiply(params, self.db, q_all)
-        inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))
-        words = torch.stack([
-            self._pack_encode(self._fold(inter[..., i, :], v_folding),
-                              pps[i]["v_packing"])
-            for i, (_, v_folding) in enumerate(expanded)])
+        words = self._dispatch([self._pp_dev(pp) for pp, _ in requests],
+                               [q for _, q in requests])
 
         def fetch():
             host = words.cpu().numpy()        # waits for the queued work

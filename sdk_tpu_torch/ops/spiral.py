@@ -8,8 +8,10 @@ Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
   scan      : encrypted-query x DB product over the dense index (kernel C,
               csrc/scan.cu) or the compact index (kernel I,
               csrc/scan_compact.cu)
-  fold      : GSW external products over db_dim_2 rounds
-  pack      : recombine n*n scalar cts into one matrix ct (versions 0, 1)
+  fold      : GSW external products over db_dim_2 rounds, one launch of
+              kernel F (csrc/fold_round.cu) per round for a whole batch
+  pack      : recombine n*n scalar cts into one matrix ct (versions 0, 1),
+              kernel G (csrc/pack.cu), one launch for a whole batch
 
 Representation (see modops): NTT matrices are int32 ``(rows, cols, crt, n)``
 residues; raw matrices are int64 ``(rows, cols, n)`` values mod Q. The dense
@@ -34,7 +36,9 @@ from ..params import Params
 from .. import _build
 from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
                      reduce_channels, u32_bits)
-from .ntt import ntt_forward, ntt_inverse
+from .ntt import (ntt_forward, ntt_forward_plain, ntt_inverse,
+                  ntt_inverse_plain)
+from .ntt import tables as ntt_tables
 
 LIMB_BITS = 7
 NUM_LIMBS = 4  # 4 x 7 = 28 bits covers both CRT moduli (q < 2^28)
@@ -48,14 +52,6 @@ _SCAN_CHUNK = 64  # plain scan: 64 products < 2^56 each keep an int64 sum exact
 def to_ntt(params: Params, raw: torch.Tensor) -> torch.Tensor:
     """raw int64 (..., n) -> NTT int32 (..., crt, n)."""
     return ntt_forward(params, reduce_channels(params, raw))
-
-
-def to_ntt_no_reduce(params: Params, digits: torch.Tensor) -> torch.Tensor:
-    """digits (..., n) (< 4q) -> NTT, copied into every channel unreduced
-    (reference poly.rs:625-638)."""
-    stacked = digits.to(torch.int32).unsqueeze(-2).expand(
-        digits.shape[:-1] + (params.crt_count, params.poly_len))
-    return ntt_forward(params, stacked.contiguous())
 
 
 def from_ntt(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -662,69 +658,160 @@ def get_v_folding_neg(params: Params, v_folding: torch.Tensor,
     return add_mod(params, gadget_ntt[None], inv)
 
 
+def _to_ntt_plain(params: Params, raw: torch.Tensor) -> torch.Tensor:
+    return ntt_forward_plain(params, reduce_channels(params, raw))
+
+
+def _from_ntt_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return crt_compose(params, ntt_inverse_plain(params, x))
+
+
+def _fold_key_dims(params: Params, cts: torch.Tensor, v_folding: torch.Tensor,
+                   v_folding_neg: torch.Tensor) -> int:
+    """Number of leading per-query dims of the folding keys (vb of
+    spiral_jax.fold_ciphertexts); they align with cts' first dims."""
+    vb = v_folding.ndim - 5
+    tail = (params.db_dim_2, 2, 2 * params.t_gsw, params.crt_count,
+            params.poly_len)
+    if (vb < 0 or v_folding.shape != v_folding_neg.shape
+            or tuple(v_folding.shape[vb:]) != tail
+            or v_folding.shape[:vb] != cts.shape[:vb] or vb > cts.ndim - 4):
+        raise ValueError(f"fold: cts {tuple(cts.shape)}, keys "
+                         f"{tuple(v_folding.shape)} / "
+                         f"{tuple(v_folding_neg.shape)}")
+    return vb
+
+
+def fold_round_plain(params: Params, cts: torch.Tensor, v_neg: torch.Tensor,
+                     v_fold: torch.Tensor) -> torch.Tensor:
+    """One fold round in plain PyTorch (the plain versions of A, B and A',
+    never a kernel). cts: raw (..., 2*num_per, 2, 1, n); v_neg, v_fold: the
+    round's key matrices (*vb, 2, 2*t_gsw, crt, n). Returns (..., num_per, 2,
+    1, n): V_neg (x) a + V_fold (x) b, but b verbatim where a is all zero and
+    a verbatim where b is."""
+    ell = 2 * params.t_gsw
+    num_per = cts.shape[-4] // 2
+    a = cts[..., :num_per, :, :, :]
+    b = cts[..., num_per:, :, :, :]
+    za = (a == 0).flatten(-3).all(-1)[..., None, None, None]
+    zb = (b == 0).flatten(-3).all(-1)[..., None, None, None]
+    # [V_neg | V_fold] @ [G(a); G(b)] as one matmul with doubled k; the
+    # digits go into the NTT unreduced, the same in every channel
+    digits = torch.cat([gadget_digits(params, a, ell, 2),
+                        gadget_digits(params, b, ell, 2)], dim=-3)
+    stacked = digits.to(torch.int32).unsqueeze(-2).expand(
+        digits.shape[:-1] + (params.crt_count, params.poly_len))
+    g_ntt = ntt_forward_plain(params, stacked)
+    v_cat = torch.cat([v_neg, v_fold], dim=-3)
+    f = _from_ntt_plain(params, matmul_mod_plain(params, v_cat, g_ntt))
+    return torch.where(za, b, torch.where(zb, a, f))
+
+
+def _fold_round_launch(params: Params, cts: torch.Tensor, v_folding_neg,
+                       v_folding, key: int, vb: int) -> torch.Tensor:
+    """Kernel F (csrc/fold_round.cu) on one round; the keys are the whole
+    (*vb, db_dim_2, 2, ell, crt, n) tensors, the round's matrix is picked by
+    offset."""
+    n = params.poly_len
+    num_per = cts.shape[-4] // 2
+    if (cts.dtype != torch.int64 or cts.shape[-3:] != (2, 1, n)
+            or cts.shape[-4] != 2 * num_per or params.crt_count != 2
+            or v_folding.dtype != torch.int32
+            or v_folding_neg.dtype != torch.int32):
+        raise ValueError(f"fold_round: cts {cts.dtype} {tuple(cts.shape)}, "
+                         f"keys {v_folding.dtype} {tuple(v_folding.shape)}")
+    cts = cts.contiguous()
+    v_folding = v_folding.contiguous()
+    v_folding_neg = v_folding_neg.contiguous()
+    tb = ntt_tables(params, cts.device)
+    _build.require_cuda(cts, v_folding, v_folding_neg, tb)
+    lead = cts.shape[:-4]
+    entries = int(np.prod(lead, dtype=np.int64))
+    nq = int(np.prod(lead[:vb], dtype=np.int64))
+    out = torch.empty(lead + (num_per, 2, 1, n), dtype=torch.int64,
+                      device=cts.device)
+    ell = 2 * params.t_gsw
+    mat = 2 * ell * 2 * n                   # words of one round's key matrix
+    q0, q1 = params.moduli
+    _build.launch("fold_round", "sdk_fold_round", cts.device, cts.data_ptr(),
+                  out.data_ptr(), v_folding_neg.data_ptr() + 4 * key * mat,
+                  v_folding.data_ptr() + 4 * key * mat, tb.data_ptr(),
+                  entries, num_per, entries // max(nq, 1),
+                  params.db_dim_2 * mat if vb else 0, params.t_gsw,
+                  _get_bits_per(params, params.t_gsw), params.poly_len_log2,
+                  q0, q1, params.inv_q0_mod_q1, _build.stream_of(cts))
+    return out
+
+
 def fold_ciphertexts(params: Params, cts: torch.Tensor, v_folding: torch.Tensor,
                      v_folding_neg: torch.Tensor) -> torch.Tensor:
     """cts: raw (..., num_per, 2, 1, n); GSW-driven binary fold, returns
-    (..., 2, 1, n).
+    (..., 2, 1, n). The keys (db_dim_2, 2, 2*t_gsw, crt, n) may carry
+    leading per-query dims that align with cts' first dims (the batched
+    engine folds every query of a batch in one launch per round).
 
     Implements the reference's all-zero shortcut (lib/server fold.rs:37-44,
-    "crucial for correctness") with masks: a round's output slot takes b
-    verbatim when a is exactly zero (an absent row) and a when b is zero,
-    bypassing the GSW selection whose key error would otherwise swamp the
-    decode budget. The GSW products still run for every slot."""
+    "crucial for correctness"): a round's output slot takes b verbatim when
+    a is exactly zero (an absent row) and a when b is zero, bypassing the GSW
+    selection whose key error would otherwise swamp the decode budget.
+
+    One launch of kernel F (csrc/fold_round.cu) per round on a CUDA tensor,
+    fold_round_plain on a CPU tensor."""
     num_per = cts.shape[-4]
     if num_per == 1:
         return cts[..., 0, :, :, :]
-    ell = 2 * params.t_gsw
+    vb = _fold_key_dims(params, cts, v_folding, v_folding_neg)
+    if cts.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {cts.device}")
     further_dims = params.db_dim_2
     for cur_dim in range(further_dims):
-        num_per //= 2
-        a = cts[..., :num_per, :, :, :]
-        b = cts[..., num_per:2 * num_per, :, :, :]
-        za = (a == 0).flatten(-3).all(-1)[..., None, None, None]
-        zb = (b == 0).flatten(-3).all(-1)[..., None, None, None]
-        # [V_neg | V_fold] @ [G(a); G(b)] as one matmul with doubled k; the
-        # digits (< 2^bits_per < q) skip the mod-q pre-reduction
-        g_ntt = to_ntt_no_reduce(params, torch.cat(
-            [gadget_digits(params, a, ell, 2),
-             gadget_digits(params, b, ell, 2)], dim=-3))
         key = further_dims - 1 - cur_dim
-        v_cat = torch.cat([v_folding_neg[key], v_folding[key]], dim=1)
-        f = from_ntt(params, matmul_mod(params, v_cat, g_ntt))
-        cts = torch.where(za, b, torch.where(zb, a, f))
+        if cts.device.type == "cuda":
+            cts = _fold_round_launch(params, cts, v_folding_neg, v_folding,
+                                     key, vb)
+        else:
+            sel = (slice(None),) * vb + (key,)
+            cts = fold_round_plain(params, cts, v_folding_neg[sel],
+                                   v_folding[sel])
     return cts[..., 0, :, :, :]
 
 
-def pack(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
-    """v_ct: raw (n*n, 2, 1, n); v_packing: list of n keyed (n+1, t_conv)
-    matrices (version 0) or [w_key, w_shift] (version 1, pack.rs:46-100).
-    Returns packed NTT (n+1, n, crt, n)."""
+def _key_matrix(k) -> torch.Tensor:
+    """The key matrix of a keyed (w, w_shoup) pair or a bare tensor."""
+    return k[0] if isinstance(k, tuple) else k
+
+
+def pack_plain(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
+    """pack for one (query, instance) in plain PyTorch (the plain versions of
+    A, A' and B, never a kernel). v_ct: raw (n*n, 2, 1, z); returns NTT
+    (n+1, n, crt, z)."""
     n = params.n
+    keys = [_key_matrix(k) for k in v_packing]
     cols = []
     for c in range(n):
         v_int = torch.zeros((n + 1, 1, params.crt_count, params.poly_len),
                             dtype=torch.int32, device=v_ct.device)
         for r in range(n):
             ct = v_ct[r * n + c]
-            ct2 = to_ntt(params, ct[1:2])
-            ginv_ntt = to_ntt(params, gadget_digits(params, ct[0:1],
-                                                    params.t_conv, 1))
+            ct2 = _to_ntt_plain(params, ct[1:2])
+            ginv_ntt = _to_ntt_plain(params, gadget_digits(
+                params, ct[0:1], params.t_conv, 1))
             if params.version == 0:
-                prod = matmul_mod(params, v_packing[r], ginv_ntt)
+                prod = matmul_mod_plain(params, keys[r], ginv_ntt)
                 v_int = v_int.clone()
                 v_int[1 + r:2 + r] = add_mod(params, v_int[1 + r:2 + r], ct2)
                 v_int = add_mod(params, v_int, prod)
             else:
-                w_key, w_shift = v_packing[0], v_packing[1]
-                prod = matmul_mod(params, w_key, ginv_ntt)  # (n+1, 1, crt, z)
+                w_key, w_shift = keys[0], keys[1]
+                prod = matmul_mod_plain(params, w_key, ginv_ntt)
                 prod = torch.cat([prod[0:1], add_mod(params, prod[1:2], ct2),
-                                  prod[2:]])
+                                  prod[2:]])             # (n+1, 1, crt, z)
                 for _ in range(r):
-                    ginv2 = gadget_digits(params,
-                                          from_ntt(params, prod[0:1]),
-                                          params.t_conv, 1)
-                    part1 = matmul_mod(params, w_shift,
-                                       to_ntt(params, ginv2))
+                    ginv2 = gadget_digits(
+                        params, _from_ntt_plain(params, prod[0:1]),
+                        params.t_conv, 1)
+                    part1 = matmul_mod_plain(params, w_shift,
+                                             _to_ntt_plain(params, ginv2))
                     rest = prod[1:]
                     part2 = torch.cat([torch.zeros_like(prod[0:1]),
                                        rest[-1:], rest[:-1]])
@@ -732,3 +819,68 @@ def pack(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
                 v_int = add_mod(params, v_int, prod)
         cols.append(v_int)
     return torch.cat(cols, dim=1)
+
+
+def _pack_launch(params: Params, v_ct: torch.Tensor, v_packings: list,
+                 raw: bool) -> torch.Tensor:
+    """Kernel G (csrc/pack.cu) on v_ct (nq, instances, n*n, 2, 1, z) with one
+    key list per query; the keys go in as a table of device pointers."""
+    n, z = params.n, params.poly_len
+    nq, inst = v_ct.shape[:2]
+    nkeys = n if params.version == 0 else 2
+    keys = [[_key_matrix(k) for k in vp[:nkeys]] for vp in v_packings]
+    want = (n + 1, params.t_conv, params.crt_count, z)
+    if (v_ct.dtype != torch.int64 or tuple(v_ct.shape[2:]) != (n * n, 2, 1, z)
+            or params.crt_count != 2 or len(keys) != nq
+            or any(len(ks) != nkeys or k.dtype != torch.int32
+                   or tuple(k.shape) != want for ks in keys for k in ks)):
+        raise ValueError(f"pack: v_ct {v_ct.dtype} {tuple(v_ct.shape)} with "
+                         f"{len(keys)} key lists of (n+1, t_conv, crt, z) "
+                         f"int32 matrices expected")
+    v_ct = v_ct.contiguous()
+    keys = [[k.contiguous() for k in ks] for ks in keys]
+    tb = ntt_tables(params, v_ct.device)
+    _build.require_cuda(v_ct, tb, *[k for ks in keys for k in ks])
+    table = torch.tensor([k.data_ptr() for ks in keys for k in ks],
+                         dtype=torch.int64).to(v_ct.device)
+    if raw:
+        out = torch.empty((nq, inst, n + 1, n, z), dtype=torch.int64,
+                          device=v_ct.device)
+    else:
+        out = torch.empty((nq, inst, n + 1, n, 2, z), dtype=torch.int32,
+                          device=v_ct.device)
+    q0, q1 = params.moduli
+    _build.launch("pack", "sdk_pack", v_ct.device, v_ct.data_ptr(),
+                  table.data_ptr(), tb.data_ptr(),
+                  None if raw else out.data_ptr(),
+                  out.data_ptr() if raw else None, nq, inst, n, params.t_conv,
+                  _get_bits_per(params, params.t_conv), params.version,
+                  params.poly_len_log2, q0, q1, params.inv_q0_mod_q1,
+                  _build.stream_of(v_ct))
+    return out
+
+
+def pack_queries(params: Params, v_ct: torch.Tensor, v_packings: list,
+                 raw: bool = False) -> torch.Tensor:
+    """pack for every (query, instance) of a batch: v_ct raw (nq, instances,
+    n*n, 2, 1, z), v_packings one key list per query. Returns the packed
+    NTT matrices (nq, instances, n+1, n, crt, z) int32, or with ``raw`` their
+    from_ntt (nq, instances, n+1, n, z) int64, which kernel G computes in
+    the same launch. One launch of kernel G on a CUDA tensor, pack_plain per
+    (query, instance) on a CPU tensor."""
+    if v_ct.device.type == "cuda":
+        return _pack_launch(params, v_ct, v_packings, raw)
+    if v_ct.device.type != "cpu":
+        raise ValueError(f"unsupported device {v_ct.device}")
+    out = torch.stack([
+        torch.stack([pack_plain(params, v_ct[i, j], vp)
+                     for j in range(v_ct.shape[1])])
+        for i, vp in enumerate(v_packings)])
+    return _from_ntt_plain(params, out) if raw else out
+
+
+def pack(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
+    """v_ct: raw (n*n, 2, 1, z); v_packing: list of n keyed (n+1, t_conv)
+    matrices (version 0) or [w_key, w_shift] (version 1, pack.rs:46-100).
+    Returns packed NTT (n+1, n, crt, z)."""
+    return pack_queries(params, v_ct[None, None], [v_packing])[0, 0]

@@ -6,8 +6,9 @@ routes' semantics) onto SpiralServerTorch, with the JAX bucket's index
 lifecycle: a new bucket starts in the O(populated) compact index, expands
 queries sparsely while few first-dim rows are populated, and migrates to
 the dense index once more than dense_migrate_fill of the items are
-populated. Sharding, checkpointing, clear and the key storage policies
-(bloom filter, key list) are not ported yet (ROADMAP.md, Queue 1).
+populated; with the key storage policies (bloom filter, key list), clear,
+rename, destroy, metrics and checkpoint / restore of the encrypted index.
+Sharding is not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -15,10 +16,13 @@ from __future__ import annotations
 import base64
 import json
 import logging
+import os
+import pickle
 import threading
 import time
 import uuid as uuidlib
 
+import numpy as np
 import torch
 
 from ..client import Client, PublicParameters, Query
@@ -26,10 +30,13 @@ from ..kv.key_value import row_from_key
 from ..kv.write import compress_row, unwrap_kv_pairs, update_row
 from ..params import Params, params_to_json_obj
 
-from ..kv.ingest import DbUpdateBuffer, compact_to_dense
+from ..clients.bloom import BloomFilter
+from ..kv.ingest import CompactSlots, DbUpdateBuffer, compact_to_dense
 from ..ops.server import (SpiralServerTorch, index_hbm_bytes, pp_to_device,
                           serving_working_set_bytes)
-from ..ops.spiral import CompactDb, compact_db_empty
+from ..ops.spiral import (CompactDb, compact_db_empty, compact_shape,
+                          db_shape)
+from ..telemetry import GLOBAL_TIMERS
 
 UUID_V4_STR_BYTES = 36
 # batch size the capacity guard sizes the serving working set for
@@ -46,11 +53,24 @@ class SpiralKvServerTorch:
 
     def __init__(self, params: Params, device="cuda",
                  params_json: str | None = None,
-                 hbm_budget_bytes: int | None = None):
+                 hbm_budget_bytes: int | None = None,
+                 key_storage_policy: str = "bloom"):
         self.params = params
         self.device = torch.device(device)
         self.params_json = params_json or json.dumps(params_to_json_obj(params))
         self.name = ""
+        self.destroyed = False
+        # key storage policy: 'none' | 'bloom' | 'full' (reference
+        # bucket_service.ts keyStoragePolicy); the bloom filter is the
+        # prefilter of the clients' private_key_intersect
+        if key_storage_policy not in ("none", "bloom", "full"):
+            raise ValueError(f"key_storage_policy {key_storage_policy!r}")
+        self.key_storage_policy = key_storage_policy
+        self._key_bloom = None
+        self._stored_keys: set[str] = set()
+        if key_storage_policy in ("bloom", "full"):
+            self._key_bloom = BloomFilter.empty(
+                8, params.db_dim_1 + params.db_dim_2 + 6)
         self.rows: list[bytearray] = [bytearray()
                                       for _ in range(params.num_items())]
         self.pub_params: dict[str, dict] = {}
@@ -82,8 +102,13 @@ class SpiralKvServerTorch:
     # --- capacity guard ---
 
     def _device_budget_bytes(self) -> int | None:
+        if os.environ.get("SDK_TPU_NO_CAPACITY_GUARD"):
+            return None
         if self.hbm_budget_bytes is not None:
             return self.hbm_budget_bytes
+        env = os.environ.get("SDK_TPU_HBM_BUDGET_BYTES")
+        if env:
+            return int(env)
         if self.device.type != "cuda":
             return None
         free, _total = torch.cuda.mem_get_info(self.device)
@@ -122,6 +147,12 @@ class SpiralKvServerTorch:
             for row_id in sorted(by_row):
                 for k, v in by_row[row_id]:
                     update_row(self.rows[row_id], k, v)
+                    if v and self._key_bloom is not None:
+                        self._key_bloom.insert(k)
+                    if v and self.key_storage_policy == "full":
+                        self._stored_keys.add(k)
+                    elif not v:
+                        self._stored_keys.discard(k)
                 self.update_item_raw(row_id, compress_row(self.rows[row_id]))
             self.version += 1
         return {"status": "done updating",
@@ -214,6 +245,9 @@ class SpiralKvServerTorch:
         """body: JSON string of base64 public params; returns a uuid."""
         return self.setup_raw(base64.b64decode(json.loads(body)))
 
+    def has_uuid(self, uid: str) -> bool:
+        return uid in self.pub_params
+
     def _parse_request(self, request_bytes: bytes):
         params = self.params
         want = UUID_V4_STR_BYTES + params.query_bytes()
@@ -272,6 +306,51 @@ class SpiralKvServerTorch:
                 self.pub_params.pop(uid, None)
         return time.monotonic() - t0
 
+    def bloom_bytes(self) -> bytes:
+        if self._key_bloom is None:
+            raise KeyError("bloom")
+        return self._key_bloom.to_bytes()
+
+    def list_keys(self) -> list[str]:
+        if self.key_storage_policy != "full":
+            raise KeyError("list-keys")
+        return sorted(self._stored_keys)
+
+    def clear(self) -> None:
+        """Delete all rows but keep metadata and public params (reference
+        clear_entire_bucket semantics): back to a fresh minimal compact
+        index, which releases the dense tensor if the bucket had migrated."""
+        with self.lock:
+            for r in self.rows:
+                r.clear()
+            self.engine.db = None       # drop the old index before the new
+            self.engine.set_db(compact_db_empty(self.params, self.device))
+            self._updates.slots = CompactSlots(self.params)
+            self._updates.pending_raw.clear()
+            self._populated_items.clear()
+            self._pop_dirty = False
+            self._migration_refused = False
+            self.engine.set_populated_dim0(None)
+            self._stored_keys.clear()
+            if self._key_bloom is not None:
+                self._key_bloom = BloomFilter.empty(self._key_bloom.k,
+                                                    self._key_bloom.bits)
+            self.version += 1
+
+    def rename(self, new_name: str) -> None:
+        """Bucket rename (reference /modify route, js bucket.ts rename)."""
+        with self.lock:
+            self.name = new_name
+
+    def destroy(self) -> None:
+        """Destroy the bucket entirely: all state gone, subsequent requests
+        404 (reference destroy_entire_bucket semantics; this single-bucket
+        server tombstones it)."""
+        with self.lock:
+            self.clear()
+            self.pub_params.clear()
+            self.destroyed = True
+
     def meta(self) -> dict:
         return {
             "id": 0,
@@ -284,3 +363,154 @@ class SpiralKvServerTorch:
                              else "dense"),
             "sparse_expansion": self.engine._splan is not None,
         }
+
+    def metrics(self) -> dict:
+        return {"stages": GLOBAL_TIMERS.snapshot(), "version": self.version,
+                "num_rows_populated": sum(1 for r in self.rows if r)}
+
+    # --- checkpoint / restore of the preprocessed encrypted index ---
+    # (reference: load_preprocessed_db_from_file, db/loading.rs:263-276)
+
+    def save_to_dir(self, path: str) -> None:
+        """Write db_tensor.npy (the dense DB tensor or the compact planes in
+        the port's layout, spiral.db_shape / compact_shape), db_idx_j.npy
+        (compact), rows.pkl and state.json. The index streams to the file
+        one (channel, z-block) slice at a time through a memmap, so neither
+        the host nor the device holds a second copy."""
+        os.makedirs(path, exist_ok=True)
+        with self.lock:
+            self._flush()
+            compact = isinstance(self.engine.db, CompactDb)
+            planes = self.engine.db.planes if compact else self.engine.db
+            out = np.lib.format.open_memmap(
+                os.path.join(path, "db_tensor.npy"), mode="w+",
+                dtype=np.int8, shape=tuple(planes.shape))
+            step = _z_step(planes)
+            for c in range(planes.shape[0]):
+                for z0 in range(0, planes.shape[1], step):
+                    out[c, z0:z0 + step] = planes[c, z0:z0 + step].cpu().numpy()
+            out.flush()
+            del out
+            if compact:
+                np.save(os.path.join(path, "db_idx_j.npy"),
+                        self.engine.db.idx_j.cpu().numpy())
+            with open(os.path.join(path, "rows.pkl"), "wb") as f:
+                pickle.dump([bytes(r) for r in self.rows], f)
+            state = {"version": self.version,
+                     "params_json": self.params_json,
+                     "key_storage_policy": self.key_storage_policy,
+                     "stored_keys": sorted(self._stored_keys),
+                     "populated_items": sorted(self._populated_items),
+                     "db_format": "compact" if compact else "dense",
+                     "db_layout": "torch"}
+            if compact:
+                state["compact_slots"] = self._updates.slots.to_state()
+            if self._key_bloom is not None:
+                state["key_bloom"] = self._key_bloom.to_bytes().hex()
+            with open(os.path.join(path, "state.json"), "w") as f:
+                json.dump(state, f)
+
+    def _load_index(self, db: np.ndarray, compact: bool):
+        """db_tensor.npy (a memmap) -> the index tensor on the device, in
+        the port's layout. Takes the port's own checkpoints (ndim 8) and the
+        JAX bucket's plane format (crt*L stacked int8 planes (z, inst,
+        trials, num_per, cols), ndim 6), regrouped slice by slice on the host. The
+        JAX bucket's other formats are layouts of its TPU build and are
+        refused."""
+        params = self.params
+        if db.ndim == 7:
+            raise ValueError(
+                "checkpoint is in the JAX bucket's 'throughput' dense layout "
+                "(crt, z, inst, trials, num_per, L, dim0), a TPU layout that "
+                "the port does not read; save it in the 'latency' layout")
+        if db.ndim == 6 and db.dtype == np.uint32:
+            raise ValueError(
+                "checkpoint is in the JAX bucket's legacy pre-limb uint32 "
+                "format (inst, trials, crt, z, num_per, dim0), which the "
+                "port does not read")
+        if db.dtype != np.int8 or db.ndim not in (6, 8):
+            raise ValueError(f"unknown db_tensor.npy format {db.dtype} "
+                             f"{db.shape}")
+        jax_planes = db.ndim == 6
+        cols = db.shape[-1] if jax_planes else 4 * db.shape[3]
+        if cols % 4:
+            raise ValueError(f"checkpoint has {cols} columns per bin; the "
+                             f"port's index holds them in words of 4")
+        want = compact_shape(params, cols) if compact else db_shape(params)
+        crt, z, L, jw = want[:4]
+        have = ((crt * L, z) + want[4:7] + (cols,)) if jax_planes else want
+        if tuple(db.shape) != have:
+            raise ValueError(f"checkpoint index {db.shape}, want {have}")
+        dev = torch.empty(want, dtype=torch.int8, device=self.device)
+        step = _z_step(dev)
+        for c in range(crt):
+            for z0 in range(0, z, step):
+                if jax_planes:
+                    # (L, zb, inst, trials, npr, jw, 4) -> (zb, L, jw, ...)
+                    blk = np.stack([db[c * L + k, z0:z0 + step]
+                                    for k in range(L)])
+                    blk = blk.reshape(blk.shape[:-1] + (jw, 4)).transpose(
+                        1, 0, 5, 2, 3, 4, 6)
+                    blk = np.ascontiguousarray(blk)
+                else:
+                    blk = np.array(db[c, z0:z0 + step])   # off the memmap
+                dev[c, z0:z0 + step] = torch.from_numpy(blk)
+        return dev
+
+    def restore_from_dir(self, path: str) -> None:
+        with self.lock:
+            with open(os.path.join(path, "state.json")) as f:
+                state = json.load(f)
+            compact = state.get("db_format") == "compact"
+            self._migration_refused = False
+            # memmap: the index streams file -> device instead of being
+            # materialised in host memory first
+            db = np.load(os.path.join(path, "db_tensor.npy"), mmap_mode="r")
+            if not compact:
+                self._check_capacity()   # refuse before allocating
+            # release the resident index before uploading the new one:
+            # holding both would need twice the index bytes for a while
+            self.engine.db = None
+            try:
+                index = self._load_index(db, compact)
+                if compact:
+                    idx_j = torch.from_numpy(np.load(
+                        os.path.join(path, "db_idx_j.npy")).astype(np.int32))
+                    slots = CompactSlots(self.params)
+                    slots.load_state(state["compact_slots"])
+                    if slots.cap_bin != idx_j.shape[1]:
+                        raise ValueError("compact_slots and db_idx_j.npy "
+                                         "disagree on cap_bin")
+                    self.engine.set_db(CompactDb(index, idx_j))
+                    self._updates.slots = slots
+                else:
+                    self.engine.set_db(index)
+                    self._updates.slots = CompactSlots(self.params)
+            except Exception:
+                self.engine.set_db(compact_db_empty(self.params, self.device))
+                raise
+            with open(os.path.join(path, "rows.pkl"), "rb") as f:
+                self.rows = [bytearray(r) for r in pickle.load(f)]
+            self.version = state["version"]
+            self._stored_keys = set(state.get("stored_keys", []))
+            if "populated_items" in state:
+                self._populated_items = set(state["populated_items"])
+                self._pop_dirty = True
+            else:
+                # older checkpoint: no population info, so expand densely
+                self._populated_items = set()
+                self._pop_dirty = False
+                self.engine.set_populated_dim0(None)
+            if "key_bloom" in state and self._key_bloom is not None:
+                # a writable copy: the bucket goes on inserting keys
+                loaded = BloomFilter.from_bytes(
+                    bytes.fromhex(state["key_bloom"]))
+                self._key_bloom = BloomFilter(loaded.k, loaded.bits,
+                                              bytearray(loaded.data))
+            self._updates.pending_raw.clear()
+
+
+def _z_step(index: torch.Tensor) -> int:
+    """z rows per streamed checkpoint slice: about 64 MB of the index."""
+    per_z = int(np.prod(index.shape[2:], dtype=np.int64))
+    return max(1, min(index.shape[1], (64 << 20) // max(per_z, 1)))

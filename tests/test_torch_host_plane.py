@@ -98,3 +98,66 @@ def test_key_value_rows_identical():
             kv_j.row_from_key(1 << 15, k)
         assert key_value.extract_result(k, bytes(rows_t)) == \
             kv_j.extract_result(k, bytes(rows_j))
+
+
+def test_client_sdk_helpers_identical():
+    """The copied client-side helpers (chunk and key/value framing, seed
+    strings, the Merkle-proof tree helpers) against the JAX package's."""
+    import hashlib
+
+    from sdk_tpu.clients import proof as proof_j
+    from sdk_tpu.clients import seed as seed_j
+    from sdk_tpu.clients import serializer as ser_j
+    from sdk_tpu_torch.clients import proof, seed, serializer
+
+    rng = np.random.default_rng(7)
+    chunks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in (0, 1, 127, 128, 70000)]
+    blob = serializer.serialize_chunks(chunks)
+    assert blob == ser_j.serialize_chunks(chunks)
+    assert serializer.deserialize_chunks(blob) == chunks
+    wrapped = serializer.wrap_key_val(b"key", chunks[3])
+    assert wrapped == ser_j.wrap_key_val(b"key", chunks[3])
+    assert serializer.unwrap_key_val(wrapped) == ser_j.unwrap_key_val(wrapped)
+    raw = bytes(range(32))
+    assert seed.string_from_seed(raw) == seed_j.string_from_seed(raw)
+    assert seed.seed_from_string(seed.string_from_seed(raw)) == raw
+
+    def h2(a: str, b: str) -> str:
+        return "0x" + hashlib.sha256(bytes.fromhex(a[2:])
+                                     + bytes.fromhex(b[2:])).hexdigest()
+
+    leaves = ["0x" + hashlib.sha256(f"leaf{i}".encode()).hexdigest()
+              for i in range(16)]
+    levels = proof.build_tree_levels(leaves, h2)
+    assert levels == proof_j.build_tree_levels(leaves, h2)
+    assert proof.subtree_level_order(levels, 1, 1, 3) == \
+        proof_j.subtree_level_order(levels, 1, 1, 3)
+    cfg = dict(bucket_url="", api_key="", cap_url="", subtree_height=3,
+               cap_height=2, tree_height=5)
+    assert proof.get_subtree_indices(proof.LookupCfg(**cfg), 11) == \
+        proof_j.get_subtree_indices(proof_j.LookupCfg(**cfg), 11)
+
+
+def test_doublepir_cli_e2e_and_preprocess(tmp_path):
+    """The copied DoublePIR command-line tools: the chunked e2e recovers its
+    planted entries, and preprocess writes the files the JAX package's
+    tool writes."""
+    from sdk_tpu.doublepir import cli as cli_j
+    from sdk_tpu_torch.doublepir import cli
+
+    assert cli.main(["e2e", "12"]) == 0
+    assert cli.main([]) == 2
+    data = tmp_path / "bits.bin"
+    data.write_bytes(np.random.default_rng(9).integers(
+        0, 256, 512, dtype=np.uint8).tobytes())
+    for mod, name in ((cli, "port"), (cli_j, "jax")):
+        (tmp_path / name).mkdir()
+        assert mod.main(["preprocess", "4096", "1", str(data),
+                         str(tmp_path / name / "db")]) == 0
+    files = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert files and files == sorted(p.name for p in
+                                     (tmp_path / "jax").iterdir())
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes()

@@ -35,7 +35,17 @@ def test_every_module_imports_without_jax():
     mods = port_modules()
     assert {"sdk_tpu_torch.server.kv_server",
             "sdk_tpu_torch.server.doublepir_server",
+            "sdk_tpu_torch.server.http",
             "sdk_tpu_torch.clients.bloom",
+            "sdk_tpu_torch.clients.serializer",
+            "sdk_tpu_torch.clients.seed",
+            "sdk_tpu_torch.clients.api",
+            "sdk_tpu_torch.clients.bucket",
+            "sdk_tpu_torch.clients.bucket_service",
+            "sdk_tpu_torch.clients.proof",
+            "sdk_tpu_torch.clients.async_bucket",
+            "sdk_tpu_torch.doublepir.cli",
+            "sdk_tpu_torch.kv.ingest",
             "sdk_tpu_torch.doublepir.kernels",
             "sdk_tpu_torch.doublepir.server_torch",
             "sdk_tpu_torch.doublepir.scheme",
@@ -85,6 +95,7 @@ def test_entry_points_default_to_the_card(entry):
 
 
 def test_cpu_tensors_take_plain_path_without_build(monkeypatch):
+    from sdk_tpu_torch.kv import ingest
     from sdk_tpu_torch.ops import ntt, spiral
     from sdk_tpu_torch.ops.encode import ResponseEncodePlan
 
@@ -103,6 +114,15 @@ def test_cpu_tensors_take_plain_path_without_build(monkeypatch):
         (2, 2048, 1 << PARAMS.db_dim_1, 2), dtype=torch.int32))
     ResponseEncodePlan(PARAMS, "cpu").encode(torch.zeros(
         (1, 3, 2, 2048), dtype=torch.int64))
+    keys = torch.zeros((PARAMS.db_dim_2, 2, 2 * PARAMS.t_gsw, 2, 2048),
+                       dtype=torch.int32)
+    spiral.fold_ciphertexts(PARAMS, torch.ones(
+        (1 << PARAMS.db_dim_2, 2, 1, 2048), dtype=torch.int64), keys, keys)
+    spiral.pack(PARAMS, torch.ones((4, 2, 1, 2048), dtype=torch.int64),
+                [torch.zeros((3, PARAMS.t_conv, 2, 2048), dtype=torch.int32)]
+                * 2)
+    ingest.ingest_into(PARAMS, db, [1], [2], torch.ones(
+        (1, 4, 2048), dtype=torch.uint8))
     assert _build.LAUNCHES == before
     assert _build._lib is None
 

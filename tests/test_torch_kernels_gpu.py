@@ -17,12 +17,13 @@ import torch
 from sdk_tpu import client as client_j, params as params_j, server_host
 from sdk_tpu_torch import _build
 from sdk_tpu_torch.client import Client
+from sdk_tpu_torch.kv import ingest as ingest_t
 from sdk_tpu_torch.kv.ingest import ingest_items_device
 from sdk_tpu_torch.ops import ntt, spiral as sj
 from sdk_tpu_torch.ops.encode import ResponseEncodePlan
 from sdk_tpu_torch.ops.server import SpiralServerTorch
 from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
-                                  params_to_json_obj)
+                                  params_from_json, params_to_json_obj)
 from sdk_tpu_torch.rng import ChaCha20Rng
 from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
 
@@ -54,6 +55,18 @@ def test_ntt_matches_plain(cuda):
     got = ntt.ntt_inverse(PARAMS, x.to(cuda)).cpu()
     assert torch.equal(got, ntt.ntt_inverse_plain(PARAMS, x))
     torch.cuda.synchronize()
+
+
+def test_ntt_forward_takes_any_u32(cuda):
+    """Inputs over the whole uint32 range (4q and above are reduced on
+    load), with the extremes planted."""
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 1 << 32, (64, 2, 2048), dtype=np.uint64)
+    q0, q1 = PARAMS.moduli
+    x[0, :, :6] = [0, 4 * q0 - 1, 4 * q0, 4 * q1, (1 << 31), (1 << 32) - 1]
+    inp = torch.from_numpy(x.astype(np.uint32).view(np.int32))
+    got = ntt.ntt_forward(PARAMS, inp.to(cuda)).cpu()
+    assert torch.equal(got, ntt.ntt_forward_plain(PARAMS, inp))
 
 
 @pytest.mark.parametrize("keyed", [False, True])
@@ -145,6 +158,102 @@ def test_ingest_matches_plain(cuda):
     assert torch.equal(got, ingest_items_device(PARAMS, raw))
 
 
+# version-1 crypto shapes of the 1 GiB bucket (t_gsw 7, t_conv 3)
+V1_TINY = params_from_json(
+    '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 22, "t_gsw": 7,'
+    ' "t_conv": 3, "t_exp_left": 5, "t_exp_right": 5, "instances": 2,'
+    ' "version": 1}')
+P16 = params_from_json(
+    '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 16, "q2_bits": 20, "t_gsw": 8,'
+    ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
+    ' "version": 0}')
+
+
+@pytest.mark.parametrize("per_query", [False, True])
+@pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["t_gsw8", "t_gsw7"])
+def test_fold_matches_plain(cuda, params, per_query):
+    """Kernel F, every round of a fold, against fold_round_plain: random
+    keys, slots with a, b or both exactly zero, one key set or one per
+    query."""
+    rng = np.random.default_rng(31)
+    nq, it = 3, 2
+    num_per = 1 << params.db_dim_2
+    lead = (nq,) if per_query else ()
+    vf = residues(rng, lead + (params.db_dim_2, 2, 2 * params.t_gsw), params)
+    vn = residues(rng, lead + (params.db_dim_2, 2, 2 * params.t_gsw), params)
+    cts = torch.from_numpy(rng.integers(
+        0, params.modulus, (nq, it, num_per, 2, 1, params.poly_len),
+        dtype=np.int64))
+    cts[:, :, 0] = 0                       # a == 0
+    cts[:, 0, num_per // 2 + 1] = 0        # b == 0
+    cts[1, 1, 1] = 0
+    cts[1, 1, num_per // 2 + 1] = 0        # both
+    cts[2, 1] = 0                          # an empty entry
+    _build.reset_launches()
+    got = sj.fold_ciphertexts(params, cts.to(cuda), vf.to(cuda),
+                              vn.to(cuda)).cpu()
+    assert _build.LAUNCHES["fold_round"] == params.db_dim_2
+    assert _build.LAUNCHES["matmul_mod"] == 0
+    assert torch.equal(got, sj.fold_ciphertexts(params, cts, vf, vn))
+    assert not got[2, 1].any()
+
+
+@pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["v0", "v1"])
+def test_pack_matches_plain(cuda, params):
+    """Kernel G for 3 queries x instances in one launch, each query with
+    its own keys, in both output forms."""
+    rng = np.random.default_rng(32)
+    nq = 3
+    nkeys = params.n if params.version == 0 else 2
+    keys = [[residues(rng, (params.n + 1, params.t_conv), params)
+             for _ in range(nkeys)] for _ in range(nq)]
+    v_ct = torch.from_numpy(rng.integers(
+        0, params.modulus, (nq, params.instances, params.n * params.n, 2, 1,
+                            params.poly_len), dtype=np.int64))
+    v_ct[1, 0, 1] = 0
+    v_ct[0, 0, 0, 0, 0, :3] = torch.tensor([0, params.modulus - 1, 1])
+    want = sj.pack_queries(params, v_ct, keys)
+    dev_keys = [[k.to(cuda) for k in ks] for ks in keys]
+    _build.reset_launches()
+    got = sj.pack_queries(params, v_ct.to(cuda), dev_keys)
+    raw = sj.pack_queries(params, v_ct.to(cuda), dev_keys, raw=True)
+    assert _build.LAUNCHES["pack"] == 2 and _build.LAUNCHES["ntt_forward"] == 0
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(raw.cpu(), sj.pack_queries(params, v_ct, keys, raw=True))
+
+
+@pytest.mark.parametrize("params", [PARAMS, P16], ids=["p256", "p16"])
+@pytest.mark.parametrize("target", ["dense", "compact"])
+def test_ingest_into_matches_plain(cuda, params, target):
+    """Kernel H writing in place into a dense tensor and into compact
+    planes, against ingest_plain + db_write_items, over an index that already
+    holds other bytes; and its residue output."""
+    rng = np.random.default_rng(33)
+    chunks = params.instances * params.n * params.n
+    K = 7
+    raw = torch.from_numpy(rng.integers(
+        0, 256, (K, chunks, params.bytes_per_chunk()), dtype=np.uint8))
+    raw[2] = 0
+    num_per = 1 << params.db_dim_2
+    shape = (sj.db_shape(params) if target == "dense"
+             else sj.compact_shape(params, 8))
+    ncols = 4 * shape[3]
+    flat = rng.choice(num_per * ncols, K, replace=False)
+    bins, cols = flat % num_per, flat // num_per
+    start = torch.from_numpy(rng.integers(0, 128, shape, dtype=np.int8))
+    want = start.clone()
+    ingest_t.ingest_into(params, want, bins, cols, raw)
+    got = start.to(cuda)
+    _build.reset_launches()
+    ingest_t.ingest_into(params, got, bins, cols, raw.to(cuda))
+    assert _build.LAUNCHES["ingest"] == 1 and _build.LAUNCHES["ntt_forward"] == 0
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(ingest_items_device(params, raw.to(cuda)).cpu(),
+                       ingest_t.ingest_plain(params, raw))
+    with pytest.raises(ValueError):
+        ingest_t.ingest_into(params, got, bins + num_per, cols, raw.to(cuda))
+
+
 def _session(params, seed: int):
     client = Client(params)
     pp = client.generate_keys_from_seed(
@@ -212,6 +321,43 @@ def test_bucket_lifecycle_on_card(cuda, state):
     assert layout == ("dense" if state == "S3" else "compact")
     assert (counts["scan_compact"] > 0) == (state != "S3"), counts
     assert counts["expand_round"] > 0, counts
+
+
+def test_batched_engine_on_card_equals_cpu(cuda):
+    """A 3-query batch (padded to 4 for the scan) from two sessions through
+    the bucket on the card equals the CPU plain engine byte for byte, and
+    goes through F and G once per round and batch."""
+    params = PARAMS
+    rng = np.random.default_rng(12)
+    row_len = params.instances * params.n * params.n * params.bytes_per_chunk()
+    items = list(range(0, 200, 5))
+    sessions = [_session(params, 0x51), _session(params, 0x61)]
+    blobs = None
+    responses = []
+    for device in (cuda, "cpu"):
+        srv = SpiralKvServerTorch(params, device)
+        for i in items:
+            srv.update_item_raw(i, np.random.default_rng(i).integers(
+                0, 256, row_len, dtype=np.uint8).tobytes())
+        uids = [srv.setup_raw(pp.serialize(params), f"{k}" * 36)
+                for k, (_, pp) in enumerate(sessions)]
+        if blobs is None:
+            blobs = [uids[k % 2].encode() + sessions[k % 2][0].generate_query(
+                items[3 + k], noise_rng=ChaCha20Rng(bytes([0x70 + k]) * 32),
+                query_seed=bytes([0x80 + k]) * 32).serialize(params)
+                for k in range(3)]
+        srv.flush()
+        _build.reset_launches()
+        responses.append(srv.private_read_blobs(blobs))
+        if device is cuda:
+            counts = dict(_build.LAUNCHES)
+    assert responses[0] == responses[1]
+    assert counts["fold_round"] == params.db_dim_2 and counts["pack"] == 1
+    assert counts["encode"] == 3 and counts["scan"] == 1, counts
+    for k in range(3):
+        row = np.random.default_rng(items[3 + k]).integers(
+            0, 256, row_len, dtype=np.uint8).tobytes()
+        assert sessions[k % 2][0].decode_response(responses[0][k])[:row_len] == row
 
 
 # ---- DoublePIR: kernels K (dp_dot_i8) and L (dp_matmul_u32) ---------------

@@ -54,7 +54,8 @@ def residues(rng, params, lead):
 
 
 def t32(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(a.astype(np.int32))
+    """uint32-valued array -> int32 tensor of the same bit patterns."""
+    return torch.from_numpy(a.astype(np.uint32).view(np.int32))
 
 
 def keys(params, seed=0x11):
@@ -71,19 +72,35 @@ def keyed_pair(params, m: np.ndarray):
             (u32_bits(m, "cpu"), u32_bits(ws, "cpu")))
 
 
-@pytest.mark.parametrize("kind", ["residues", "digits", "lazy_4q"])
+@pytest.mark.parametrize("kind", ["residues", "digits", "lazy_4q", "any_u32"])
 def test_ntt_matches_jax(kind):
     rng = np.random.default_rng(11)
-    if kind == "residues":
+    if kind == "any_u32":
+        # the whole uint32 range, as tests/test_ntt_jax.py pins it
+        x = rng.integers(0, 1 << 32, (3, 2, FAST.poly_len), dtype=U64)
+        x[0, :, :3] = [(1 << 32) - 1, 1 << 31, 4 * FAST.moduli[0]]
+    elif kind == "residues":
         x = residues(rng, FAST, (3,))
     elif kind == "digits":
         x = rng.integers(0, 1 << 19, (3, 2, FAST.poly_len)).astype(U64)
     else:
         x = np.stack([rng.integers(0, 4 * q, (3, FAST.poly_len))
                       for q in FAST.moduli], axis=-2).astype(U64)
+    x_in = x
+    if kind == "any_u32":
+        # The port gives the exact transform of x mod q for any uint32. The
+        # JAX function (and its host oracle) run their lazy butterflies on
+        # whatever they are given: from 4q on their words are not canonical
+        # (>= q) and differ from the transform, so the reference here is the
+        # JAX transform of the reduced input.
+        lazy = np.asarray(jax.jit(lambda a: ntt_jax.ntt_forward(J(FAST), a))(
+            jnp.asarray(x.astype(np.uint32))))
+        assert (lazy[:, 0] >= FAST.moduli[0]).any()
+        x = np.stack([x[:, c] % U64(q) for c, q in enumerate(FAST.moduli)],
+                     axis=1)
     fwd = np.asarray(jax.jit(lambda a: ntt_jax.ntt_forward(J(FAST), a))(
         jnp.asarray(x.astype(np.uint32))))
-    got = ntt.ntt_forward(FAST, t32(x)).numpy()
+    got = ntt.ntt_forward(FAST, t32(x_in)).numpy()
     np.testing.assert_array_equal(got, fwd.astype(np.int32))
     np.testing.assert_array_equal(got.astype(U64), ntt_host.ntt_forward(J(FAST), x))
     inv = np.asarray(jax.jit(lambda a: ntt_jax.ntt_inverse(J(FAST), a))(
