@@ -21,14 +21,24 @@ Phases (any failure exits non-zero, with no result line):
 5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
    states: S1, about 100 keys written (compact index, sparse expansion);
    S2, about 3,500 items (compact, dense expansion); S3, past 4,096 items
-   (migrated to the dense index). In each state single reads through
-   private_read and one 16-query batch (4 sessions x 4 queries) decode to
-   the written values. Kernel I (compact scan, in S1 and S2) and C (dense
+   (migrated to the dense index by kernel H'). In each state single reads
+   through private_read and one 16-query batch (4 sessions x 4 queries)
+   decode to the written values. Kernel I (compact scan, in S1 and S2), H'
+   (dense migration, on the S2 index before it migrates) and C (dense
    scan, in S3) are held against their plain versions on the state's index,
    E' (expansion round) at the expansion's shapes.
 6. full size: a second bucket filled with all 2^15 seeded rows (its first
    flush stays compact, its second migrates; an 8.59 GB dense index), three
    keys written, read through private_read and one 16-query batch.
+6b. sharded: the same rows in a bucket whose dense index is cut over a
+   (dp=2, db=4) mesh of eight LOGICAL shards of the one card (dim0 128 and
+   8 instance-trials a shard); the full bucket's probe blobs, a single read
+   and a 16-query batch, answered with the same bytes and decoded, then
+   timed in alternation with the unsharded bucket (kept from 6); kernel M
+   (the exact mod-q sum of the shards' partials) against its plain version
+   at D = 2, 4, 8 in both forms; the two selfchecks; a DCN front end over
+   two port backends at V1_SMALL against one port server; the row-sharded
+   checklist at a small byte-element config against the unsharded one.
 7. service: the 1 GiB bucket behind its HTTP service on localhost, driven
    through sdk_tpu_torch.clients only: setup (JSON and presigned upload),
    /write of a few hundred keys, private reads, 16 readers at once through
@@ -48,9 +58,10 @@ Phases (any failure exits non-zero, with no result line):
    hint setup with the real AES-derived A1/A2, 8-query membership batches
    through the port's client: members found, a non-member's bits decode
    to 0, a tampered query does not decode.
-11. report: launches of every kernel on the main paths (5, 6, 7 and 10,
-   each must be > 0), memory, wall times, and the kernel table as one JSON
-   line; then the card, and as the last line, the device.
+11. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
+   10, each must be > 0), memory, wall times, and the kernel table as one
+   JSON line; then the card, and as the last line, the device (count 1:
+   the mesh of 6b is logical shards of that one card).
 
 Launches are counted only while a phase drives the main path: the counts
 are set to 0 just before its reads and read just after, so the launches of
@@ -113,6 +124,20 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     return int((got.long() - want.long()).abs().max())
+
+
+def max_abs_err_int8(got: torch.Tensor, want: torch.Tensor) -> int:
+    """max_abs_err of two int8 indexes too large to widen at once, one
+    (channel, 256-row z block) slice at a time."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = 0
+    for c in range(got.shape[0]):
+        for z0 in range(0, got.shape[1], 256):
+            d = (got[c, z0:z0 + 256].to(torch.int16)
+                 - want[c, z0:z0 + 256].to(torch.int16))
+            err = max(err, int(d.abs().max()))
+    return err
 
 
 def nbytes(*tensors) -> int:
@@ -838,6 +863,11 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
     check_expand_round(params, splan, gen, dev, table)
     log("[lifecycle] E' equals its plain version (B = 1, 64, 512, left and "
         "right keys, the widest S1 sparse round)")
+    out["compact_to_dense"] = check_compact_to_dense(
+        params, db, srv._updates.slots.bin_count, table)
+    log(f"[lifecycle] H' equals its plain version on the S2 index; "
+        f"{out['compact_to_dense']['ms']:.3f} ms against the index_put_ "
+        f"route's {out['compact_to_dense']['plain_ms']:.3f} ms")
     del db
 
     # S3: past 4,096 items: the next flush migrates to the dense index
@@ -848,11 +878,12 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
         srv.update_item_raw(int(i), data)
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
-    srv.flush()
-    torch.cuda.synchronize()
+    _, mig_counts = launches.run(srv.flush)
     migrate_s = time.perf_counter() - t
-    if isinstance(srv.engine.db, sj.CompactDb):
-        raise AssertionError("S3: the bucket did not migrate to dense")
+    if isinstance(srv.engine.db, sj.CompactDb) \
+            or mig_counts["compact_to_dense"] != 1:
+        raise AssertionError(f"S3: the bucket did not migrate to dense "
+                             f"through H': {mig_counts}")
     peak = torch.cuda.max_memory_allocated(dev)
     s3, counts = launches.run(lambda: sessions.drive(
         srv, uids, keys, values, 128, 3, 1))
@@ -905,9 +936,10 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     out["fill_s"] = time.perf_counter() - t0
     out["fill_launches"] = {k: v for k, v in fill_counts.items() if v}
     out["layouts_after_each_flush"] = layouts
-    if not layouts[0].startswith("compact") or layouts[1] != "dense":
-        raise AssertionError(f"fill: want compact then dense, got "
-                             f"{layouts[:2]}")
+    if not layouts[0].startswith("compact") or layouts[1] != "dense" \
+            or fill_counts["compact_to_dense"] != 1:
+        raise AssertionError(f"fill: want compact then dense through H', "
+                             f"got {layouts[:2]}, {fill_counts}")
     log(f"[full] filled {n_items} items through the device ingest in "
         f"{out['fill_s']:.1f} s; after each flush: {layouts[0]}, then "
         f"{layouts[1]} (migrated)")
@@ -939,15 +971,355 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     log(f"[full] 5 single reads through private_read and 2 x 16-query "
         f"batches decoded; single median {reads['single_read_ms_median']:.2f} "
         f"ms, batch {reads['batch16_ms_median']:.2f} ms")
-    out["stages_ms"] = stage_breakdown(
-        srv, [sessions.blob(uids, 0, KEYS[0], 250)])
-    out["stages_ms_batch16"] = stage_breakdown(srv, [
-        sessions.blob(uids, 1 + i // 4, KEYS[i % 3], 260 + i)
-        for i in range(16)])
-    del srv
+    probe = {"uids": uids, "single_blob": sessions.blob(uids, 0, KEYS[0], 250),
+             "batch_blobs": [sessions.blob(uids, 1 + i // 4, KEYS[i % 3],
+                                           260 + i) for i in range(16)]}
+    out["stages_ms"] = stage_breakdown(srv, [probe["single_blob"]])
+    out["stages_ms_batch16"] = stage_breakdown(srv, probe["batch_blobs"])
+    probe.update(probe_reads(srv, probe, sessions, values))
+    out["probe"] = {k: v for k, v in probe.items() if k.endswith("_ms")}
+    # the bucket stays for phase_sharded's paired timing (two 8.59 GB
+    # indexes fit on the card); phase_sharded drops it
+    probe["srv"] = srv
+    return out, probe
+
+
+def probe_reads(srv, probe: dict, sessions: Sessions, values: dict) -> dict:
+    """The probe blobs through ``srv``: three single reads and two 16-query
+    batches, every response decoded; the responses and median wall ms."""
+    lat, bt = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        single = srv.private_read_blobs([probe["single_blob"]])[0]
+        lat.append((time.perf_counter() - t) * 1e3)
+    for _ in range(2):
+        t = time.perf_counter()
+        batch = srv.dispatch_read_blobs(probe["batch_blobs"])()
+        bt.append((time.perf_counter() - t) * 1e3)
+    check_value(sessions.clients[0], single, KEYS[0], values[KEYS[0]])
+    for i, resp in enumerate(batch):
+        check_value(sessions.clients[1 + i // 4], resp, KEYS[i % 3],
+                    values[KEYS[i % 3]])
+    return {"single": single, "batch": batch,
+            "single_read_ms": float(np.median(lat)),
+            "batch16_ms": float(np.median(bt))}
+
+
+def paired_read_ms(buckets: dict, probe: dict, rounds: int = 6) -> dict:
+    """The probe's single read and 16-batch on each of two buckets in
+    alternation (a b, b a, ...), so that both see the same stretch of this
+    run's host: the median wall ms of each, and every sample."""
+    names = list(buckets)
+    samples = {f"{n}_{kind}": [] for n in names for kind in ("single", "batch16")}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            t = time.perf_counter()
+            buckets[n].private_read_blobs([probe["single_blob"]])
+            samples[f"{n}_single"].append((time.perf_counter() - t) * 1e3)
+        for n in (names if r % 2 == 0 else names[::-1]):
+            t = time.perf_counter()
+            buckets[n].dispatch_read_blobs(probe["batch_blobs"])()
+            samples[f"{n}_batch16"].append((time.perf_counter() - t) * 1e3)
+    return {**{f"{k}_ms": float(np.median(v)) for k, v in samples.items()},
+            "samples_ms": samples}
+
+
+def check_compact_to_dense(params, db, counts, table: KernelTable) -> dict:
+    """Kernel H' against its plain version (the index_put_ route the port
+    ran before the kernel) on a compact index, exactly, and both timed."""
+    from sdk_tpu_torch.kv.ingest import (compact_to_dense,
+                                         compact_to_dense_plain)
+
+    got = compact_to_dense(params, db, counts)
+    want = compact_to_dense_plain(params, db, counts)
+    table.check("compact_to_dense", f"S2 index, cap {db.cap_bin}",
+                max_abs_err_int8(got, want))
+    dense_bytes = nbytes(got)
+    del got, want
+    ms = cuda_ms(lambda: compact_to_dense(params, db, counts), 3)
+    plain_ms = cuda_ms(lambda: compact_to_dense_plain(params, db, counts), 1)
+    occupied = int(np.minimum(counts, db.cap_bin).sum())
+    crt, z, L, _, inst, trials, _, _ = db.planes.shape
+    # this run's data: the occupied slots' limbs read once, every byte of
+    # the dense index written once
+    b = bound(dense_bytes + occupied * crt * z * L * inst * trials
+              + nbytes(db.idx_j) + 4 * len(counts), 0, INT32_OPS_PER_S)
+    table.timed("compact_to_dense", "sdk_tpu_torch/csrc/compact_to_dense.cu",
+                "sdk_tpu/kv/ingest.py:161",
+                f"the S2 compact index (cap {db.cap_bin}, {occupied} occupied "
+                f"slots, {nbytes(db.planes)} bytes of planes) -> a new dense "
+                f"index of {dense_bytes} bytes; plain_ms and library_ms: the "
+                f"plain version, index_put_(accumulate=True) per (channel, "
+                f"limb) plane, the route the port ran before this kernel",
+                ms, plain_ms, b, library_ms=plain_ms, occupied_slots=occupied,
+                dense_GBps=dense_bytes / ms / 1e6)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "occupied_slots": occupied}
+
+
+def check_psum_mod(params, dev, table: KernelTable) -> dict:
+    """Kernel M against its plain version at the 1 GiB bucket's partial
+    shapes, D = 2, 4, 8, in the Spiral form (residues below q_c) and the
+    wrapping form (any 32 bits, q = 0), exactly; timed beside its plain
+    version and the library's torch.stack(parts).sum(0) % q. The row's
+    main numbers are the main path's: D = 4 partials of a (dp=2, db=4)
+    mesh, (2, z, inst, trials / 2, num_per, 2) for a single read."""
+    from sdk_tpu_torch.ops.shard import psum_mod, psum_mod_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    z, inst, npr = params.poly_len, params.instances, 1 << params.db_dim_2
+    trials = params.n * params.n
+    qcol = torch.tensor(params.moduli, dtype=torch.int64,
+                        device=dev).reshape(2, 1, 1, 1, 1, 1)
+
+    def parts(D, tl, R, form):
+        shape = (2, z, inst, tl, npr, R)
+        if form == "spiral":
+            return [torch.randint(0, min(params.moduli), shape, generator=gen,
+                                  dtype=torch.int32, device=dev)
+                    for _ in range(D)]
+        return [torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                              dtype=torch.int32, device=dev)
+                for _ in range(D)]
+
+    def case(D, tl, R, form) -> dict:
+        ps = parts(D, tl, R, form)
+        q = params.moduli if form == "spiral" else 0
+        table.check("psum_mod", f"D={D} {form} {tuple(ps[0].shape)}",
+                    max_abs_err(psum_mod(ps, q), psum_mod_plain(ps, q)))
+        if form == "spiral":
+            lib = lambda: torch.stack(ps).sum(0) % qcol
+        else:
+            lib = lambda: torch.stack(ps).sum(0) & 0xFFFFFFFF
+        r = {"ms": cuda_ms(lambda: psum_mod(ps, q), 20),
+             "plain_ms": cuda_ms(lambda: psum_mod_plain(ps, q), 3),
+             "library_ms": cuda_ms(lib, 5),
+             "bnd": bound((D + 1) * nbytes(ps[0]), D * ps[0].numel(),
+                          INT32_OPS_PER_S),
+             "part_bytes": nbytes(ps[0])}
+        return r
+
+    extra = {}
+    for D in (2, 4, 8):
+        for form in ("spiral", "wrapping"):
+            r = case(D, trials, 2, form)
+            for k in ("ms", "plain_ms", "library_ms"):
+                extra[f"D{D}_{form}_{k}"] = r[k]
+            extra[f"D{D}_{form}_bound_ms"] = r["bnd"]["bound_ms"]
+    main = case(4, trials // 2, 2, "spiral")
+    batch = case(4, trials // 2, 32, "spiral")
+    extra.update(R32_ms=batch["ms"], R32_plain_ms=batch["plain_ms"],
+                 R32_library_ms=batch["library_ms"],
+                 R32_bound_ms=batch["bnd"]["bound_ms"],
+                 part_bytes=main["part_bytes"])
+    table.timed("psum_mod", "sdk_tpu_torch/csrc/psum_mod.cu",
+                "sdk_tpu/ops/shard.py:42",
+                f"D=4 int32 partials (2, {z}, {inst}, {trials // 2}, {npr}, "
+                f"2) of a (dp=2, db=4) mesh, mod q_c per channel (a single "
+                f"read); R=32 (a 16-batch) in R32_*; D=2/4/8 x (2, {z}, "
+                f"{inst}, {trials}, {npr}, 2) in the Spiral and the wrapping "
+                f"(q = 0) forms in D*_; library_ms: torch.stack(parts)"
+                f".sum(0) % q", main["ms"], main["plain_ms"], main["bnd"],
+                library_ms=main["library_ms"], **extra)
+    return {"ms": main["ms"], "bound_ms": main["bnd"]["bound_ms"]}
+
+
+def phase_sharded(params, sessions: Sessions, dev, table: KernelTable,
+                  launches: Launches, probe: dict) -> dict:
+    """The full bucket's rows in a bucket cut over eight logical shards of
+    the card; its responses to phase_full's probe blobs are the unsharded
+    bucket's bytes, and both buckets are timed in alternation."""
+    from sdk_tpu_torch.ops.shard import make_mesh
+    from sdk_tpu_torch.selfcheck import (sharded_doublepir_check,
+                                         sharded_protocol_check)
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    mesh = make_mesh(8, dp=2, devices=[dev] * 8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv = SpiralKvServerTorch(params, mesh=mesh)
+    db = srv.engine.db
+    out = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.devices.flat],
+           "shard_shape": list(db.shards[0][0].shape),
+           "logical_shards_of_one_card": True}
+    log(f"[sharded] a (dp=2, db=4) mesh of eight logical shards of "
+        f"{dev} (one card): shard shape {out['shard_shape']}")
+    n_items = params.num_items()
+    gen = np.random.default_rng(SEED + 1)      # phase_full's rows, again
+    step = n_items // 8
+
+    def fill():
+        for s0 in range(0, n_items, step):
+            for i, data in random_rows(params, gen, range(s0, s0 + step)).items():
+                srv.update_item_raw(i, data)
+            srv.flush()
+
+    t0 = time.perf_counter()
+    _, fill_counts = launches.run(fill)
+    out["fill_s"] = time.perf_counter() - t0
+    out["fill_launches"] = {k: v for k, v in fill_counts.items() if v}
+    values = {k: bytes(gen.integers(0, 256, value_len(params), dtype=np.uint8))
+              for k in KEYS}
+    write_values(srv, values)
+    srv.flush()
+    for uid, pp in zip(probe["uids"], sessions.pp):
+        srv.setup_raw(pp, uid)
+    got, counts = launches.run(lambda: probe_reads(srv, probe, sessions,
+                                                   values))
+    if got["single"] != probe["single"] or got["batch"] != probe["batch"]:
+        raise AssertionError("sharded responses differ from the unsharded "
+                             "full bucket's")
+    if min(counts["psum_mod"], counts["scan"], counts["fold_round"]) <= 0:
+        raise AssertionError(f"sharded reads did not launch C, M, F: {counts}")
+    paired = paired_read_ms({"sharded": srv, "unsharded": probe["srv"]},
+                            probe)
+    out.update(single_read_ms=paired["sharded_single_ms"],
+               batch16_ms=paired["sharded_batch16_ms"],
+               unsharded_single_read_ms=paired["unsharded_single_ms"],
+               unsharded_batch16_ms=paired["unsharded_batch16_ms"],
+               paired_samples_ms=paired["samples_ms"], launches=counts,
+               max_memory_allocated_beside_the_unsharded_bucket=
+               torch.cuda.max_memory_allocated(dev))
+    log(f"[sharded] filled {n_items} items in {out['fill_s']:.1f} s; the "
+        f"probe blobs' single read and 16-batch equal the unsharded "
+        f"bucket's bytes and decode; in alternation with the unsharded "
+        f"bucket (medians of 6): single {out['single_read_ms']:.2f} ms "
+        f"(unsharded {out['unsharded_single_read_ms']:.2f}), batch "
+        f"{out['batch16_ms']:.2f} ms (unsharded "
+        f"{out['unsharded_batch16_ms']:.2f})")
+    del srv, db
+    probe.pop("srv")
     gc.collect()
     torch.cuda.empty_cache()
+    out["psum_mod"] = check_psum_mod(params, dev, table)
+    log(f"[sharded] M equals its plain version (D = 2, 4, 8, both forms); "
+        f"main path shape {out['psum_mod']['ms']:.4f} ms")
+    _, counts = launches.run(lambda: (
+        sharded_protocol_check(make_mesh(8, dp=2, devices=[dev] * 8)),
+        sharded_doublepir_check(make_mesh(4, devices=[dev] * 4))))
+    out["selfcheck_launches"] = {k: v for k, v in counts.items() if v}
+    log("[sharded] selfchecks: sharded Spiral (dp=2, db=4) and checklist "
+        "(db=4) equal unsharded serving and decode")
+    out["dcn"] = phase_dcn(dev, launches)
+    out["checklist"] = phase_sharded_checklist(dev, launches)
     return out
+
+
+def phase_dcn(dev, launches: Launches) -> dict:
+    """A DCN front end over two port backends of one instance each (on the
+    card, behind the port's HTTP service on threads) at V1_SMALL, driven
+    through the clients, against one port server with both instances."""
+    from sdk_tpu_torch.client import Client
+    from sdk_tpu_torch.clients.api import API
+    from sdk_tpu_torch.kv.key_value import row_from_key
+    from sdk_tpu_torch.params import params_from_json, params_from_json_obj
+    from sdk_tpu_torch.rng import ChaCha20Rng
+    from sdk_tpu_torch.server import http as http_t
+    from sdk_tpu_torch.server.dcn import (DcnFrontend, backend_params_obj,
+                                          serve as dcn_serve)
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    params = params_from_json(V1_SMALL)
+    b_params = params_from_json_obj(backend_params_obj(params, 2))
+    httpds = []
+    try:
+        urls = []
+        for _ in range(2):
+            h = http_t.serve(SpiralKvServerTorch(b_params, dev), 0,
+                             block=False)
+            httpds.append(h)
+            urls.append(f"http://localhost:{h.server_address[1]}")
+        fe = dcn_serve(DcnFrontend(params, urls, V1_SMALL), 0, block=False)
+        httpds.append(fe)
+        one = http_t.serve(SpiralKvServerTorch(params, dev, V1_SMALL), 0,
+                           block=False)
+        httpds.append(one)
+        apis = [API("", f"http://localhost:{h.server_address[1]}")
+                for h in (fe, one)]
+        gen = np.random.default_rng(SEED + 9)
+        values = {f"dcn-{i}": bytes(gen.integers(0, 256, 700, dtype=np.uint8))
+                  for i in range(6)}
+        kv = {k: base64.b64encode(v).decode() for k, v in values.items()}
+        client = Client(params)
+        setup = client.generate_keys_from_seed(
+            b"\x51" * 32, noise_rng=ChaCha20Rng(b"\x52" * 32),
+            pp_seed=b"\x53" * 32).serialize(params)
+        uid = "5" * 36
+        keys = ["dcn-1", "dcn-4"]
+        queries = [uid.encode() + client.generate_query(
+            row_from_key(params.num_items(), k),
+            noise_rng=ChaCha20Rng(bytes([0x54 + i]) * 32),
+            query_seed=bytes([0x58 + i]) * 32).serialize(params)
+            for i, k in enumerate(keys)]
+        for api in apis:
+            api.write("", kv)
+            api._post(api.endpoint + f"/setup?uuid={uid}", json.dumps(
+                base64.b64encode(setup).decode()).encode(), compress=False)
+        got, counts = launches.run(
+            lambda: [api.private_read("", queries) for api in apis])
+        if got[0] != got[1]:
+            raise AssertionError("DCN responses differ from one port "
+                                 "server's")
+        for k, resp in zip(keys, got[0]):
+            check_value(client, resp, k, values[k])
+    finally:
+        for h in httpds:
+            h.shutdown()
+    log("[dcn] a front end over two port backends (one instance each) at "
+        "V1_SMALL answers with one port server's bytes; responses decode")
+    return {"responses": len(got[0]), "bytes": len(got[0][0]),
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def phase_sharded_checklist(dev, launches: Launches) -> dict:
+    """The row-sharded checklist over four logical shards of the card at a
+    small byte-element config against the unsharded one: the hint and
+    every answer word of an 8-query batch; the planted bits recover."""
+    from sdk_tpu_torch.doublepir import scheme
+    from sdk_tpu_torch.doublepir.params import Params
+    from sdk_tpu_torch.doublepir.server_torch import ChecklistServerTorch
+    from sdk_tpu_torch.ops.shard import make_mesh
+
+    config = "1024,6.4,46,46,32,464"
+    params = Params.from_string(config)
+    num_entries = params.l * params.m * 8
+    gen = np.random.default_rng(SEED + 11)
+    bits = gen.integers(0, 256, num_entries // 8, dtype=np.uint16) \
+        .astype(np.uint8)
+    one = ChecklistServerTorch(num_entries, params, bits, device=dev)
+    sh = ChecklistServerTorch(num_entries, params, bits,
+                              mesh=make_mesh(4, devices=[dev] * 4))
+    shared = scheme.init(one.info, params)
+    hint = one.setup(shared)
+    hint_sh, setup_counts = launches.run(lambda: sh.setup(shared))
+    if not np.array_equal(hint[0], hint_sh[0]):
+        raise AssertionError("sharded checklist hint differs")
+    all_bits = np.unpackbits(bits, bitorder="little")
+    # query k reads row batch k: a target in each batch's rows
+    bs = params.l // 8
+    targets = [(((k * bs + int(gen.integers(0, bs))) * params.m
+                 + int(gen.integers(0, params.m))) * 8
+                + int(gen.integers(0, 8))) for k in range(8)]
+    states, queries = [], []
+    for t in targets:
+        st, msg = scheme.query(t, shared, params, one.info, gen)
+        states.append(st)
+        queries.append(msg)
+    want = one.answer(queries)
+    got, counts = launches.run(lambda: sh.answer(queries))
+    if len(got) != len(want) or not all(
+            np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("sharded checklist answer differs")
+    for k, t in enumerate(targets):
+        if scheme.recover(t, k, hint_sh, queries[k], got, shared, states[k],
+                          params, sh.info) != int(all_bits[t]):
+            raise AssertionError(f"sharded checklist: bit {t} did not recover")
+    if counts["psum_mod"] != 3 or setup_counts["psum_mod"] != 1:
+        raise AssertionError(f"sharded checklist sums: {counts}")
+    log(f"[sharded checklist] {config} over 4 logical shards (l_pad "
+        f"{sh.l_pad}): hint and every answer word equal the unsharded "
+        f"server's; 8 planted bits recover")
+    return {"config": config, "l_pad": sh.l_pad,
+            "answer_launches": {k: v for k, v in counts.items() if v}}
 
 
 def stage_breakdown(srv, blobs: list) -> dict:
@@ -956,6 +1328,7 @@ def stage_breakdown(srv, blobs: list) -> dict:
     one pack + encode for all), synchronised per stage (for the breakdown
     only; the launches are not counted)."""
     from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.shard import fold_columns
 
     eng = srv.engine
     parsed = [srv._parse_request(b) for b in blobs]
@@ -973,8 +1346,11 @@ def stage_breakdown(srv, blobs: list) -> dict:
         inter = sj.firstdim_multiply(eng.params, eng.db, q_all)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        folded = eng._fold(inter.reshape(inter.shape[:-1] + (nq, 2)),
-                           torch.stack([v for _, v in expanded]))
+        v_folds = torch.stack([v for _, v in expanded])
+        folded = fold_columns(eng.params,
+                              inter.reshape(inter.shape[:-1] + (nq, 2)),
+                              v_folds, sj.get_v_folding_neg(
+                                  eng.params, v_folds, eng.gadget_ntt))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         eng._pack_encode(folded, [pp["v_packing"] for pp, _ in parsed])
@@ -1206,8 +1582,10 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
             check_value(sessions.clients[4], resp, keys[0], values[keys[0]])
 
         (_, update_s), counts = launches.run(lambda: timed_s(update_rows))
-        if api.meta()["index_layout"] != "dense" or counts["scan"] <= 0:
-            raise AssertionError("the bucket did not migrate to dense")
+        if api.meta()["index_layout"] != "dense" or counts["scan"] <= 0 \
+                or counts["compact_to_dense"] != 1:
+            raise AssertionError(f"the bucket did not migrate to dense "
+                                 f"through H': {counts}")
         some = sorted(rows)[17]
         resp = api.private_read("", [uids[4].encode() + sessions.clients[4]
                                      .generate_query(some).serialize(params)])[0]
@@ -1673,7 +2051,9 @@ def main() -> int:
     log(f"[sessions] 5 client key sets in {time.perf_counter() - t:.1f} s")
     launches = Launches()
     lifecycle = phase_lifecycle(params, sessions, dev, table, launches)
-    full = phase_full(params, sessions, dev, table, launches)
+    full, probe = phase_full(params, sessions, dev, table, launches)
+    sharded = phase_sharded(params, sessions, dev, table, launches, probe)
+    del probe
     service = phase_service(params, sessions, dev, launches)
     del sessions
     phase_doublepir_kernels(dev, table)
@@ -1692,7 +2072,7 @@ def main() -> int:
     log("[report] " + json.dumps({"card": card, "build_s": build_s,
                                   "launches": launches.total,
                                   "lifecycle": lifecycle, "full": full,
-                                  "service": service,
+                                  "sharded": sharded, "service": service,
                                   "checklist": checklist}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))

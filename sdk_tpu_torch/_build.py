@@ -36,7 +36,8 @@ LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
                             "matmul_mod": 0, "scan": 0, "encode": 0,
                             "scan_compact": 0, "expand_round": 0,
                             "dp_dot_i8": 0, "dp_matmul_u32": 0,
-                            "fold_round": 0, "pack": 0, "ingest": 0}
+                            "fold_round": 0, "pack": 0, "ingest": 0,
+                            "compact_to_dense": 0, "psum_mod": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +67,9 @@ _SIGNATURES = {
                           _U, _ULL, _P)),
     "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL,
                               _LL, _I, _U, _U, _P)),
+    "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _P, _LL, _I,
+                                                  _I, _I, _I, _P)),
+    "sdk_psum_mod": ("psum_mod", (_P, _I, _LL, _LL, _U, _U, _I, _P, _P)),
 }
 
 _lock = threading.Lock()

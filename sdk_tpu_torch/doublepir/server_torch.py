@@ -25,6 +25,13 @@ Offset corrections (exact mod 2^32), both folded into the kernel's add row:
 Bit-exact vs the host scheme (scheme.setup/answer -> client recover);
 general (non-checklist) configs use kernels.DoublePirAnswerTorch /
 device_kernels. On CPU tensors every product runs its plain version.
+
+With a mesh (ops/shard.Mesh) the DB rows are cut over the devices of the
+mesh's "db" axis (the reference chunk-and-sum pattern,
+lib/doublepir/src/bin/e2e.rs:60-106): the level-1 pass, the row-batch
+select, the squish and H1's digit planes are row-local, and the three
+contractions over l (h2 at setup; msg0, a_2 and h_2 of an answer) are
+wrapping sums of the shards' partials, kernel M in its mod-2^32 form.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..ops.shard import check_mesh, psum_mod
 from . import scheme
 from .database import DbInfo
 from .debug import print_checksum
@@ -187,16 +195,13 @@ class ChecklistServerTorch:
     """Full device-resident DoublePIR server for P=8 (byte-element) DBs.
 
     ``device`` is the card unless the caller passes ``"cpu"``, which runs
-    every product's plain version. Row-sharding the DB over several cards
-    (the JAX server's ``mesh=``) is not ported yet."""
+    every product's plain version. With ``mesh`` the DB rows shard over the
+    devices of its "db" axis (the JAX server's ``mesh=``); ``device`` is
+    then the mesh's home device, where the answer's sums land."""
 
     def __init__(self, num_entries: int, params: Params,
                  bit_bytes: np.ndarray | None, *, db_dev=None, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the row-sharded checklist (mesh=) needs the cross-device "
-                "sum, kernel M: ROADMAP Queue 1 item 6")
         info = DbInfo.new(num_entries, 1, params)
         if not (info.packing == 8 and info.ne == 1 and info.x == 1):
             raise ValueError(
@@ -204,40 +209,80 @@ class ChecklistServerTorch:
                 f" ne={info.ne} x={info.x} (use DoublePirAnswerTorch)")
         self.params = params
         self.info = info
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.home if mesh is not None else torch.device(device)
         l, m = params.l, params.m
+        # row count padded so every shard's rows are a multiple of the
+        # squish width (server_jax.py:141-146); pad rows hold byte 0 ==
+        # int8 -128, so their level-1 output is (-128 + 128) * colsum == 0,
+        # exactly a zero-digit row
+        self.devices = list(mesh.devices[0]) if mesh is not None \
+            else [self.device]
+        ndev = len(self.devices)
+        self.l_pad = -(-l // (SQUISH_DELTA * ndev)) * (SQUISH_DELTA * ndev) \
+            if mesh is not None else l
+        self.rows_per = self.l_pad // ndev
         if db_dev is not None:
             if db_dev.shape != (l, m) or db_dev.dtype != torch.int8:
                 raise ValueError(f"db_dev must be ({l}, {m}) int8")
-            self.db = _kernel_rows(db_dev.to(self.device))
+            if mesh is None:
+                self.db = _kernel_rows(db_dev.to(self.device))
+            else:
+                self.db = [self._shard_rows(db_dev, j, fill=-128)
+                           for j in range(ndev)]
         else:
             # byte 0 == int8 -128: tail elements past the bit array
-            self.db = aligned_rows(l, m, self.device, fill=-128)
-            self._upload_bits(np.asarray(bit_bytes, dtype=np.uint8),
-                              (num_entries + 7) // 8)
+            bits = np.asarray(bit_bytes, dtype=np.uint8)
+            self.db = [aligned_rows(self.rows_per, m, d, fill=-128)
+                       for d in self.devices]
+            for j, shard in enumerate(self.db):
+                self._upload_bits(bits, (num_entries + 7) // 8, shard,
+                                  j * self.rows_per)
+            if mesh is None:
+                self.db = self.db[0]
         self._h1_sq_host = None  # host (n*delta, ceil(l/3)) u32 (lazy)
         self.h1_lo = None       # device (n*delta, 3*ceil(l/3)) int8 digit lo7
         self.h1_hi = None       # device (n*delta, 3*ceil(l/3)) int8 digit hi3
         self.a_2_t = None       # host   (n, l padded to 3) u32
         self._a2_pad_dev = None  # device (l padded to 3, n) u32 bit patterns
 
-    def _upload_bits(self, bit_bytes: np.ndarray, nbytes: int) -> None:
+    def _upload_bits(self, bit_bytes: np.ndarray, nbytes: int,
+                     target: torch.Tensor, row0: int) -> None:
         """One byte per element, LSB-first bit groups (Db.from_packed_bits
-        P=8), uploaded in row chunks; the -128 happens on the device (byte
-        ^ 0x80 read as int8), so the host holds no second copy."""
+        P=8): DB rows [row0, row0 + target rows) uploaded into ``target`` in
+        row chunks; the -128 happens on the device (byte ^ 0x80 read as
+        int8), so the host holds no second copy."""
         l, m = self.params.l, self.params.m
         nb = min(nbytes, l * m, bit_bytes.shape[0])
+        rows = min(target.shape[0], l - row0)
         step = max(1, UPLOAD_CHUNK_BYTES // m)
-        for r0 in range(0, l, step):
-            lo, hi = r0 * m, min((r0 + step) * m, nb)
+        for r0 in range(0, rows, step):
+            lo = (row0 + r0) * m
+            hi = min((row0 + min(r0 + step, rows)) * m, nb)
             if lo >= hi:
                 break
-            x = (torch.from_numpy(bit_bytes[lo:hi]).to(self.device) ^ 0x80) \
+            x = (torch.from_numpy(bit_bytes[lo:hi]).to(target.device) ^ 0x80) \
                 .view(torch.int8)
             full = (hi - lo) // m
-            self.db[r0:r0 + full].copy_(x[:full * m].view(full, m))
+            target[r0:r0 + full].copy_(x[:full * m].view(full, m))
             if (hi - lo) % m:
-                self.db[r0 + full, :(hi - lo) % m] = x[full * m:]
+                target[r0 + full, :(hi - lo) % m] = x[full * m:]
+
+    def _shard_rows(self, arr, j: int, fill: int = 0) -> torch.Tensor:
+        """Rows [j * rows_per, (j + 1) * rows_per) of ``arr`` (int8 (l, m)
+        or int32 bit patterns (rows, n)) on shard j's device, padded with
+        ``fill`` past the array's end (server_jax.py:169-180); int8 rows
+        are aligned for kernel K."""
+        rp = self.rows_per
+        dev = self.devices[j]
+        part = arr[j * rp:(j + 1) * rp]
+        if arr.dtype == torch.int8:
+            out = aligned_rows(rp, arr.shape[1], dev, fill=fill)
+        else:
+            out = torch.full((rp, arr.shape[1]), fill, dtype=arr.dtype,
+                             device=dev)
+        out[:part.shape[0]] = part.to(dev)
+        return out
 
     # ---- setup (reference doublepir.rs:76-108, all products on device) ----
 
@@ -261,6 +306,9 @@ class ChecklistServerTorch:
         then run the standard device hint program. Bit-exact vs
         setup(scheme.init(...)). A2's upload doubles as its serving
         residency (_a2_pad_dev)."""
+        if self.mesh is not None:
+            raise ValueError("streamed setup is single-device "
+                             "(server_jax.py:225)")
         params, info = self.params, self.info
         a1 = self._stream_derived_to_device(
             SEEDS_SHORT[0], params.m, params.n, chunk_bytes)
@@ -274,6 +322,8 @@ class ChecklistServerTorch:
         (l,n)], uint32 numpy arrays or int32 bit-pattern tensors."""
         params, info = self.params, self.info
         shared = shared if shared is not None else scheme.init(info, params)
+        if self.mesh is not None:
+            return self._setup_sharded(shared)
         a_1 = as_u32_tensor(shared[0], self.device)
         a_2 = as_u32_tensor(shared[1], self.device)
         p, delta = params.p, params.delta()
@@ -307,6 +357,47 @@ class ChecklistServerTorch:
         self._install_a2(shared[1])
         return [to_numpy_u32(h2)]
 
+    def _setup_sharded(self, shared: list) -> list[np.ndarray]:
+        """setup over the row shards (server_jax.py:374-420): H1 and its
+        digit planes are row-local, with the pad rows' digits masked to zero
+        (the host squish pads with zero digits, and the -p/2 correction
+        makes the pad columns of H1 nonzero); each shard's H2 partial
+        carries its own -(p/2) * colsum(A2 rows) row, so the wrapping sum of
+        the partials (kernel M, q = 0) is digits @ A2 - (p/2) * colsum(A2)
+        mod 2^32."""
+        params = self.params
+        p, delta = params.p, params.delta()
+        l, rp = params.l, self.rows_per
+        a_2 = as_u32_tensor(shared[1], "cpu")
+        n = a_2.shape[1]
+        self.h1_lo, self.h1_hi, parts = [], [], []
+        for j, (dev, db) in enumerate(zip(self.devices, self.db)):
+            a_1 = as_u32_tensor(shared[0], dev)
+            a2_j = self._shard_rows(a_2, j)
+            v = u32_values(dot_i8_u32(db, a_1, c=128 - p // 2).t().contiguous())
+            valid = max(0, min(rp, l - j * rp))
+            lo_j = aligned_rows(n * delta, rp, dev)
+            hi_j = aligned_rows(n * delta, rp, dev)
+            planes = []
+            for f in range(delta):
+                d = v % p
+                v = v // p
+                d[:, valid:] = 0
+                lo = aligned_rows(n, rp, dev)
+                hi = aligned_rows(n, rp, dev)
+                lo.copy_(d & 127)
+                hi.copy_(d >> 7)
+                planes.append(dot_i8pair_u32(lo, hi, a2_j, c=-(p // 2)))
+                lo_j[f::delta] = lo
+                hi_j[f::delta] = hi
+            self.h1_lo.append(lo_j)
+            self.h1_hi.append(hi_j)
+            parts.append(torch.stack(planes, dim=1).reshape(n * delta, -1))
+        h2 = psum_mod(parts, 0)
+        self._h1_sq_host = None
+        self._install_a2(shared[1])
+        return [to_numpy_u32(h2)]
+
     @property
     def h1_sq(self):
         """Squished H1 (the persistence/wire format). The serving path only
@@ -314,12 +405,19 @@ class ChecklistServerTorch:
         the squished form from them on the device (digit = lo + (hi<<7);
         repack 3x10 bits/u32) and fetch once, cached here."""
         if self._h1_sq_host is None and self.h1_lo is not None:
-            parts = []
-            for r0 in range(0, self.h1_lo.shape[0], GLUE_ROWS):
-                lo = self.h1_lo[r0:r0 + GLUE_ROWS].to(torch.int64)
-                hi = self.h1_hi[r0:r0 + GLUE_ROWS].to(torch.int64)
-                parts.append(to_numpy_u32(_squish_digits(lo + (hi << 7))))
-            self._h1_sq_host = np.concatenate(parts)
+            los = self.h1_lo if self.mesh is not None else [self.h1_lo]
+            his = self.h1_hi if self.mesh is not None else [self.h1_hi]
+            cols = []
+            for h1_lo, h1_hi in zip(los, his):
+                parts = []
+                for r0 in range(0, h1_lo.shape[0], GLUE_ROWS):
+                    lo = h1_lo[r0:r0 + GLUE_ROWS].to(torch.int64)
+                    hi = h1_hi[r0:r0 + GLUE_ROWS].to(torch.int64)
+                    parts.append(to_numpy_u32(_squish_digits(lo + (hi << 7))))
+                cols.append(np.concatenate(parts))
+            # the shards' squished columns side by side (server_jax.py
+            # out_specs P(None, "db"))
+            self._h1_sq_host = np.concatenate(cols, axis=1)
         return self._h1_sq_host
 
     def _install_h1_planes(self, h1_sq_dev: torch.Tensor) -> None:
@@ -327,12 +425,20 @@ class ChecklistServerTorch:
         form (the persistence/wire format stays h1_sq; the planes are the
         answer path's serving layout)."""
         rows, c = h1_sq_dev.shape
-        self.h1_lo = aligned_rows(rows, c * SQUISH_DELTA, self.device)
-        self.h1_hi = aligned_rows(rows, c * SQUISH_DELTA, self.device)
-        for r0 in range(0, rows, GLUE_ROWS):
-            lo, hi = _unsquish_limbs(h1_sq_dev[r0:r0 + GLUE_ROWS])
-            self.h1_lo[r0:r0 + GLUE_ROWS] = lo
-            self.h1_hi[r0:r0 + GLUE_ROWS] = hi
+        cw = c // len(self.devices)
+        self.h1_lo, self.h1_hi = [], []
+        for j, dev in enumerate(self.devices):
+            sq = h1_sq_dev[:, j * cw:(j + 1) * cw].contiguous().to(dev)
+            h1_lo = aligned_rows(rows, cw * SQUISH_DELTA, dev)
+            h1_hi = aligned_rows(rows, cw * SQUISH_DELTA, dev)
+            for r0 in range(0, rows, GLUE_ROWS):
+                lo, hi = _unsquish_limbs(sq[r0:r0 + GLUE_ROWS])
+                h1_lo[r0:r0 + GLUE_ROWS] = lo
+                h1_hi[r0:r0 + GLUE_ROWS] = hi
+            self.h1_lo.append(h1_lo)
+            self.h1_hi.append(h1_hi)
+        if self.mesh is None:
+            self.h1_lo, self.h1_hi = self.h1_lo[0], self.h1_hi[0]
 
     def _install_a2(self, a_2) -> None:
         """A2 row-padded to SQUISH_DELTA stays on the device (msg[0] =
@@ -342,10 +448,12 @@ class ChecklistServerTorch:
         pad = (-a2_dev.shape[0]) % SQUISH_DELTA
         if pad:
             a2_dev = torch.cat([a2_dev, a2_dev.new_zeros((pad, a2_dev.shape[1]))])
-        self._a2_pad_dev = a2_dev
         self.a_2_t = None
         if isinstance(a_2, np.ndarray):
             self.a_2_t = np.ascontiguousarray(to_numpy_u32(a2_dev).T)
+        # sharded: each shard's rows of A2, zero past l (server_jax.py:351)
+        self._a2_pad_dev = a2_dev if self.mesh is None else [
+            self._shard_rows(a2_dev, j) for j in range(len(self.devices))]
 
     def install_hint(self, h1_sq: np.ndarray, a_2) -> None:
         """Restore path: install a previously computed squished H1 instead
@@ -354,6 +462,13 @@ class ChecklistServerTorch:
         computed hint needs persisting: the reference preprocess->serve
         flow, lib/doublepir/src/bin/preprocess.rs)."""
         h1_host = np.asarray(h1_sq, dtype=np.uint32)
+        if self.mesh is not None:
+            # the sharded layout has l_pad / 3 squished columns; the extra
+            # columns are zero digits
+            cols = self.l_pad // SQUISH_DELTA
+            fit = np.zeros((h1_host.shape[0], cols), dtype=np.uint32)
+            fit[:, :min(cols, h1_host.shape[1])] = h1_host[:, :cols]
+            h1_host = fit
         self._install_h1_planes(as_u32_tensor(h1_host, self.device))
         self._h1_sq_host = h1_host
         self._install_a2(a_2)
@@ -363,6 +478,8 @@ class ChecklistServerTorch:
         the digit planes ``h1_lo`` / ``h1_hi`` (n*delta, 3*ceil(l/3)) int8,
         ``a2_pad`` (l padded to 3, n) uint32 and ``a_2_t`` (its transpose,
         or None), e.g. convert.checklist_from_jax of a ChecklistServerJax."""
+        if self.mesh is not None:
+            raise ValueError("install_state takes an unsharded state")
         l, m = self.params.l, self.params.m
         rows = self.params.n * self.params.delta()
         l3 = -(-l // SQUISH_DELTA) * SQUISH_DELTA
@@ -388,19 +505,50 @@ class ChecklistServerTorch:
         (transpose_expand_concat_cols_squish for cols=concat=1: exact digit
         arithmetic, identical to the host), msg[0] and h_2 (L, packed), and
         the hint matvec a_2 (K, pair form)."""
-        p, delta = self.params.p, self.params.delta()
         a_1 = dot_i8_select(self.db, q1, c=128)                 # (l,)
+        return self._answer_rest(a_1, self._a2_pad_dev, self.h1_lo,
+                                 self.h1_hi, q2)
+
+    def _answer_rest(self, a_1, a2p, h1_lo, h1_hi, q2):
+        """Everything of an answer after level 1, over one set of rows:
+        the squish of a_1 (delta, ceil(rows/3)), msg[0], a_2 and h_2."""
+        p, delta = self.params.p, self.params.delta()
         v = u32_values(a_1)
         pad = (-v.shape[0]) % SQUISH_DELTA
         digs = []
         for _ in range(delta):
             digs.append(torch.nn.functional.pad(v % p, (0, pad)))
             v = v // p
-        a_1t = _squish_digits(torch.stack(digs))      # (delta, ceil(l/3))
-        msg0 = mat_mul_vec_packed(a_1t, self._a2_pad_dev)
-        a_2 = dot_i8pair_u32(self.h1_lo, self.h1_hi, q2)
+        a_1t = _squish_digits(torch.stack(digs))      # (delta, ceil(rows/3))
+        msg0 = mat_mul_vec_packed(a_1t, a2p)
+        a_2 = dot_i8pair_u32(h1_lo, h1_hi, q2)
         h_2 = mat_mul_vec_packed(a_1t, q2)
         return msg0, a_2, h_2
+
+    def _answer_sharded(self, q1_all: np.ndarray, q2_all: np.ndarray):
+        """The answer over the row shards (server_jax.py:486-501): per shard
+        the level-1 pass of its rows, each row batch's rows against its own
+        query column (kernel K's select form, one launch per batch that
+        meets the shard), then the row-local rest; the three contractions
+        over l are summed by kernel M mod 2^32 on the home device."""
+        nq = q1_all.shape[1]
+        bs = self.params.l // nq
+        rp = self.rows_per
+        outs = []
+        for j, dev in enumerate(self.devices):
+            q1 = as_u32_tensor(q1_all, dev)
+            r0 = j * rp
+            segs = []
+            for b in range(nq):
+                lo = max(r0, b * bs)
+                hi = min(r0 + rp, self.l_pad if b == nq - 1 else (b + 1) * bs)
+                if lo < hi:
+                    segs.append(dot_i8_select(self.db[j][lo - r0:hi - r0],
+                                              q1[:, b:b + 1], c=128))
+            q2 = as_u32_tensor(q2_all[r0:r0 + rp], dev)
+            outs.append(self._answer_rest(torch.cat(segs), self._a2_pad_dev[j],
+                                          self.h1_lo[j], self.h1_hi[j], q2))
+        return tuple(psum_mod([o[k] for o in outs], 0) for k in range(3))
 
     def answer(self, queries: list[list[np.ndarray]]) -> list[np.ndarray]:
         """Bit-exact mirror of scheme.answer for this config (x = ne = 1)."""
@@ -408,13 +556,20 @@ class ChecklistServerTorch:
         nq = len(queries)
         q1_all = np.concatenate([q[0][:m] for q in queries], axis=1)
         q2_all = np.concatenate([q[1] for q in queries], axis=1)
-        l3 = self.h1_lo.shape[1]
-        if q2_all.shape[0] != l3:
-            raise ValueError(f"second-level queries must have {l3} rows, "
-                             f"got {q2_all.shape[0]}")
-        msg0, a_2_all, h_2_all = self._answer_fused(
-            as_u32_tensor(q1_all, self.device),
-            as_u32_tensor(q2_all, self.device))
+        if self.mesh is not None:
+            # the client's queries have l rounded up to 3 rows; pad to l_pad
+            if q2_all.shape[0] < self.l_pad:
+                q2_all = np.vstack([q2_all, np.zeros(
+                    (self.l_pad - q2_all.shape[0], nq), dtype=q2_all.dtype)])
+            msg0, a_2_all, h_2_all = self._answer_sharded(q1_all, q2_all)
+        else:
+            l3 = self.h1_lo.shape[1]
+            if q2_all.shape[0] != l3:
+                raise ValueError(f"second-level queries must have {l3} rows, "
+                                 f"got {q2_all.shape[0]}")
+            msg0, a_2_all, h_2_all = self._answer_fused(
+                as_u32_tensor(q1_all, self.device),
+                as_u32_tensor(q2_all, self.device))
         msg: list[np.ndarray] = [to_numpy_u32(msg0)]
         a_2_np, h_2_np = to_numpy_u32(a_2_all), to_numpy_u32(h_2_all)
         # same named fingerprints as the host scheme (scheme.answer) and

@@ -8,7 +8,7 @@ at the item's (dim0, num_per) coordinates of the dense DB tensor, or at its
 CompactSlots). On a CUDA tensor all of that is one launch of kernel H
 (csrc/ingest.cu) per flush chunk; on a CPU tensor ingest_plain and
 spiral.db_write_items. compact_to_dense migrates a compact index to the
-dense layout.
+dense layout (kernel H', csrc/compact_to_dense.cu).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..params import Params
 from .. import _build
 from ..ops.ntt import ntt_forward_plain
 from ..ops.ntt import tables as ntt_tables
+from ..ops.shard import ShardedDb
 from ..ops.spiral import (NUM_LIMBS, CompactDb, compact_shape, db_shape,
                           db_write_items)
 
@@ -86,13 +87,16 @@ def _ingest_launch(params: Params, raw_bytes: torch.Tensor, target=None,
         jw, num_per = 0, 0
         _build.require_cuda(raw_bytes, tb)
     else:
+        # a shard of a mesh holds some of the trials (ops/shard.py): the
+        # items' chunk bytes are those of its trials
         num_per = 1 << params.db_dim_2
-        jw = target.shape[3]
+        jw, trials = (target.shape[3], target.shape[5]) if target.ndim == 8 \
+            else (0, 0)
         if (target.dtype != torch.int8 or target.ndim != 8
                 or tuple(target.shape) != (
                     params.crt_count, params.poly_len, NUM_LIMBS, jw,
-                    params.instances, params.n * params.n, num_per, 4)
-                or chunks != params.instances * params.n * params.n
+                    params.instances, trials, num_per, 4)
+                or chunks != params.instances * trials
                 or params.crt_count != 2):
             raise ValueError(f"ingest: bad index tensor {target.dtype} "
                              f"{tuple(target.shape)}")
@@ -210,28 +214,82 @@ def compact_grow(params: Params, db: CompactDb, new_cap: int) -> CompactDb:
     return CompactDb(planes, idx_j)
 
 
-def compact_to_dense(params: Params, db: CompactDb) -> torch.Tensor:
-    """Migrate a compact index to a new dense DB tensor on its device by
-    scatter-ADD of every slot onto its (bin, dim0) column: the unoccupied
-    slots add zeros (sdk_tpu/kv/ingest.py:161-193), so no occupancy mask is
-    needed. One (channel, limb) plane at a time, so the peak is the dense
-    tensor + the compact one + one eighth of the compact one; the caller
-    drops the compact index."""
+def _bin_counts(db: CompactDb, counts) -> torch.Tensor:
+    npr = db.idx_j.shape[0]
+    counts = torch.as_tensor(np.asarray(counts, dtype=np.int64)).to(
+        device=db.idx_j.device, dtype=torch.int32)
+    if tuple(counts.shape) != (npr,):
+        raise ValueError(f"compact_to_dense: {npr} bin counts wanted, got "
+                         f"{tuple(counts.shape)}")
+    return counts
+
+
+def compact_to_dense_plain(params: Params, db: CompactDb,
+                           counts) -> torch.Tensor:
+    """compact_to_dense in plain PyTorch: a scatter-ADD of every occupied
+    slot onto its (bin, dim0) column of a zeroed dense tensor
+    (sdk_tpu/kv/ingest.py:161-193), one (channel, limb) plane at a time, so
+    the peak is the dense tensor + the compact one + one eighth of it."""
     planes, idx_j = db
     npr, cap = idx_j.shape
     dev = planes.device
+    counts = _bin_counts(db, counts).to(torch.int64)
     dense = torch.zeros(db_shape(params), dtype=torch.int8, device=dev)
     dv = dense.view(dense.shape[:4] + (-1, npr, 4))   # (crt,z,L,jw,it,npr,4)
     cv = planes.view(planes.shape[:4] + (-1, npr, 4))
     b = torch.arange(npr, device=dev).repeat_interleave(cap)
     s = torch.arange(cap, device=dev).repeat(npr)
-    j = idx_j.reshape(-1).to(torch.int64)
+    occupied = s < counts.clamp(max=cap).repeat_interleave(cap)
+    b, s = b[occupied], s[occupied]
+    j = idx_j[b, s].to(torch.int64)
     for c in range(params.crt_count):
         for k in range(NUM_LIMBS):
-            vals = cv[c, :, k][:, s // 4, :, b, s % 4]     # (npr*cap, z, it)
+            vals = cv[c, :, k][:, s // 4, :, b, s % 4]     # (n, z, it)
             dv[c, :, k].permute(1, 3, 4, 0, 2).index_put_(
                 (j // 4, b, j % 4), vals, accumulate=True)
     return dense
+
+
+def _compact_to_dense_launch(params: Params, db: CompactDb,
+                             counts) -> torch.Tensor:
+    """Kernel H' (csrc/compact_to_dense.cu): one launch writes every byte
+    of a new dense tensor."""
+    planes, idx_j = db
+    crt, z, L, cw, inst, trials, npr, four = planes.shape
+    want = compact_shape(params, 4 * cw)
+    if (planes.dtype != torch.int8 or idx_j.dtype != torch.int32
+            or tuple(planes.shape) != want
+            or tuple(idx_j.shape) != (npr, 4 * cw)):
+        raise ValueError(f"compact_to_dense: planes {planes.dtype} "
+                         f"{tuple(planes.shape)}, idx_j {idx_j.dtype} "
+                         f"{tuple(idx_j.shape)}")
+    counts = _bin_counts(db, counts)
+    shape = db_shape(params)
+    jw = shape[3]
+    dense = torch.empty(shape, dtype=torch.int8, device=planes.device)
+    inv = torch.empty((jw * npr * 4,), dtype=torch.int16, device=planes.device)
+    _build.require_cuda(planes, idx_j, counts, inv, dense)
+    _build.launch("compact_to_dense", "sdk_compact_to_dense", planes.device,
+                  planes.data_ptr(), idx_j.data_ptr(), counts.data_ptr(),
+                  inv.data_ptr(), dense.data_ptr(), crt * z * L, cw, jw,
+                  inst * trials, npr, _build.stream_of(planes))
+    return dense
+
+
+def compact_to_dense(params: Params, db: CompactDb, counts) -> torch.Tensor:
+    """Migrate a compact index to a new dense DB tensor on its device:
+    the occupied slot s < counts[b] of every bin b lands on its dim0 column
+    idx_j[b, s], and every other entry is zero. ``counts`` holds each bin's
+    occupied slots (CompactSlots.bin_count): unoccupied slots carry idx_j 0,
+    which a store must not place. Kernel H' on a CUDA tensor,
+    compact_to_dense_plain on a CPU tensor; the caller drops the compact
+    index."""
+    device = db.planes.device
+    if device.type == "cuda":
+        return _compact_to_dense_launch(params, db, counts)
+    if device.type == "cpu":
+        return compact_to_dense_plain(params, db, counts)
+    raise ValueError(f"unsupported device {device}")
 
 
 class DbUpdateBuffer:
@@ -260,7 +318,8 @@ class DbUpdateBuffer:
 
     def flush(self, db):
         """Apply all pending rows to ``db`` and return it: the same dense
-        tensor, or a CompactDb (a new one when its slot axis had to grow).
+        tensor or ShardedDb, or a CompactDb (a new one when its slot axis
+        had to grow).
 
         The JAX engine donates the DB buffers to a scatter program and swaps
         in the result; here the scatter writes straight into the resident
@@ -292,8 +351,32 @@ class DbUpdateBuffer:
             cols = np.array([i // num_per for i in idxs], dtype=np.int64)
         for s in range(0, len(idxs), FLUSH_CHUNK_ITEMS):
             e = s + FLUSH_CHUNK_ITEMS
-            raw = torch.from_numpy(np.stack(
-                [self.pending_raw[i] for i in idxs[s:e]])).to(self.device)
-            ingest_into(params, target, bins[s:e], cols[s:e], raw)
+            raw = np.stack([self.pending_raw[i] for i in idxs[s:e]])
+            if isinstance(db, ShardedDb):
+                _flush_sharded(params, db, bins[s:e], cols[s:e], raw)
+            else:
+                ingest_into(params, target, bins[s:e], cols[s:e],
+                            torch.from_numpy(raw).to(self.device))
         self.pending_raw.clear()
         return db
+
+
+def _flush_sharded(params: Params, db: ShardedDb, bins, cols,
+                   raw: np.ndarray) -> None:
+    """Route K items to the shards that hold them: shard (g, j) takes the
+    items whose dim0 column falls in its block, at local column col - j *
+    dim0_local, and the chunk bytes of its trials (one launch of kernel H
+    per shard that receives items)."""
+    inst, trials = params.instances, params.n * params.n
+    d0 = 4 * db.jw_l
+    by_trial = raw.reshape(raw.shape[0], inst, trials, raw.shape[-1])
+    for g, row in enumerate(db.shards):
+        mine = by_trial[:, :, g * db.t_l:(g + 1) * db.t_l]
+        for j, shard in enumerate(row):
+            sel = cols // d0 == j
+            if not sel.any():
+                continue
+            part = np.ascontiguousarray(mine[sel]).reshape(
+                int(sel.sum()), inst * db.t_l, raw.shape[-1])
+            ingest_into(params, shard, bins[sel], cols[sel] - j * d0,
+                        torch.from_numpy(part).to(shard.device))

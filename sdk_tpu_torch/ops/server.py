@@ -1,15 +1,17 @@
 """Spiral server engine on PyTorch: device state and the query pipeline.
 
-Ports sdk_tpu/ops/server_jax.py (single device). Every stage of a read
-runs on the engine's device: expansion (dense, or compacted sparse once a
-populated set is installed) -> first-dim scan (dense or compact index) ->
-fold -> pack -> encode; only the wire words come back to the host.
+Ports sdk_tpu/ops/server_jax.py. Every stage of a read runs on the
+engine's device: expansion (dense, or compacted sparse once a populated set
+is installed) -> first-dim scan (dense or compact index) -> fold -> pack ->
+encode; only the wire words come back to the host. With a mesh
+(ops/shard.py) the dense index is cut over the mesh's devices: the scan runs
+per shard, kernel M sums each dp group's partials, F folds per dp group, and
+expansion, pack and encode run on the mesh's home device.
 Reference pipeline: lib/server/src/server.rs:17-99,
 lib/spiral-rs/src/server.rs:650-741.
 
 Not ported yet (each raises NotImplementedError; see ROADMAP.md Queue 1):
-sharded serving (a mesh), direct-upload queries and the CLIENT_TEST
-mid-pipeline decryption hook.
+direct-upload queries and the CLIENT_TEST mid-pipeline decryption hook.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from ..convert import db_from_host_tensor
 from . import spiral as sj
 from .encode import ResponseEncodePlan
 from .modops import shoup_companion_arr, u32_bits
+from .shard import (Mesh, ShardedDb, ShardedSpiralScan, check_mesh,
+                    fold_columns)
 
 _NOT_PORTED = "not ported to sdk_tpu_torch yet (ROADMAP.md, Queue 1)"
 
@@ -85,15 +89,18 @@ def pp_to_device(params: Params, pp: PublicParameters, device) -> dict:
 
 
 class SpiralServerTorch:
-    """Device-resident Spiral server for one parameter set on one device."""
+    """Device-resident Spiral server for one parameter set on one device,
+    or, with ``mesh`` (ops/shard.Mesh, axes dp and db), over the mesh's
+    devices: the dense index is cut into shards (dim0 over db, trials over
+    dp) and ``device`` is the mesh's home device (server_jax.py:202-210)."""
 
-    def __init__(self, params: Params, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"sharded serving is {_NOT_PORTED}")
+    def __init__(self, params: Params, device="cuda", mesh: Mesh | None = None):
         if not params.expand_queries:
             raise NotImplementedError(f"direct-upload queries are {_NOT_PORTED}")
         self.params = params
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh)
+        self._sharded = None if mesh is None else ShardedSpiralScan(params, mesh)
+        self.device = mesh.home if mesh is not None else torch.device(device)
         self.plan = sj.ExpansionPlan(params, self.device)
         g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
         self.gadget_ntt = u32_bits(g, self.device)
@@ -105,8 +112,19 @@ class SpiralServerTorch:
 
     def set_db(self, db) -> None:
         """Install a dense DB tensor (spiral.db_shape, int8) or a
-        spiral.CompactDb."""
+        spiral.CompactDb; with a mesh, a dense tensor (cut over the mesh) or
+        a shard.ShardedDb of the mesh (sharded serving is dense)."""
         params = self.params
+        if self._sharded is not None:
+            if isinstance(db, ShardedDb):
+                if db.mesh is not self.mesh or db.shape != sj.db_shape(params):
+                    raise ValueError("a ShardedDb of another mesh or shape")
+                self.db = db
+            elif isinstance(db, sj.CompactDb):
+                raise ValueError("sharded serving runs the dense index only")
+            else:
+                self.db = self._sharded.shard_db(db)
+            return
         if isinstance(db, sj.CompactDb):
             cap = db.cap_bin
             if (tuple(db.planes.shape) != sj.compact_shape(params, cap)
@@ -122,6 +140,10 @@ class SpiralServerTorch:
         self.db = db.to(self.device)
 
     def set_db_host_tensor(self, db_host: np.ndarray) -> None:
+        if self._sharded is not None:
+            # cut on the host: each device receives only its shard
+            self.set_db(db_from_host_tensor(self.params, db_host))
+            return
         self.set_db(db_tensor_to_device(self.params, db_host, self.device))
 
     def set_populated_dim0(self, populated) -> None:
@@ -183,20 +205,6 @@ class SpiralServerTorch:
                                     device=self.device)
         return q_arr, v_folding
 
-    def _fold(self, inter: torch.Tensor, v_foldings: torch.Tensor):
-        """The batch's scan columns (crt, z, inst, trials, num_per, NQ, 2)
-        and folding keys (NQ, db_dim_2, 2, 2*t_gsw, crt, z) -> folded raw cts
-        (NQ, inst, trials, 2, 1, z): every query folds in the same launch of
-        kernel F per round (server_jax.py:565-603)."""
-        params = self.params
-        crt, z, inst, trials, npr, nq, _ = inter.shape
-        cts = inter.permute(5, 2, 3, 4, 6, 0, 1).reshape(
-            nq, inst * trials, npr, 2, 1, crt, z)
-        v_neg = sj.get_v_folding_neg(params, v_foldings, self.gadget_ntt)
-        folded = sj.fold_ciphertexts(params, sj.from_ntt(params, cts),
-                                     v_foldings, v_neg)
-        return folded.reshape(nq, inst, trials, 2, 1, z)
-
     def _pack_encode(self, folded: torch.Tensor, v_packings: list):
         """Folded cts (NQ, inst, trials, 2, 1, z) and each query's packing
         keys -> the wire responses (NQ, words) int32 on the device: one
@@ -212,7 +220,9 @@ class SpiralServerTorch:
         for the whole batch, encode per query. NQ is padded to a power of
         two with copies of query 0's columns (server_jax.py:644-648), so R
         always splits into the scan kernel's column blocks; the fillers'
-        columns are dropped after the scan. Returns (NQ, words) int32."""
+        columns are dropped after the scan. With a mesh the scan and fold
+        run per shard (ShardedSpiralScan.scan_fold, server_jax.py:710-727).
+        Returns (NQ, words) int32."""
         n_real = len(queries)
         expanded = [self.expand_query(pp, q) for pp, q in zip(pps, queries)]
         cols = [q_arr for q_arr, _ in expanded]
@@ -220,11 +230,16 @@ class SpiralServerTorch:
         cols += [cols[0]] * (pad_n - n_real)
         q_all = torch.stack(cols, dim=-2)                 # (crt, z, dim0, NQ, 2)
         q_all = q_all.reshape(q_all.shape[:3] + (2 * pad_n,))
-        inter = sj.firstdim_multiply(self.params, self.db, q_all)
-        inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))[..., :n_real, :]
         v_foldings = torch.stack([v for _, v in expanded])
-        return self._pack_encode(self._fold(inter, v_foldings),
-                                 [pp["v_packing"] for pp in pps])
+        v_neg = sj.get_v_folding_neg(self.params, v_foldings, self.gadget_ntt)
+        if self._sharded is not None:
+            folded = self._sharded.scan_fold(self.db, q_all, n_real,
+                                             v_foldings, v_neg)
+        else:
+            inter = sj.firstdim_multiply(self.params, self.db, q_all)
+            inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))[..., :n_real, :]
+            folded = fold_columns(self.params, inter, v_foldings, v_neg)
+        return self._pack_encode(folded, [pp["v_packing"] for pp in pps])
 
     # -- host orchestration --
 

@@ -31,6 +31,7 @@ from ..doublepir.params import LOGQ, SEC_PARAM, Params, pick_params
 from ..doublepir.serializer import (deserialize_state, deserialize_states,
                                     serialize_state, serialize_states)
 from ..doublepir.server_torch import ChecklistServerTorch
+from ..ops.shard import check_mesh, mesh_from_cli
 
 BLOOM_K = 8
 HINT_CHUNK_BYTES = 4 * 2 ** 20   # hint served in cacheable 4 MiB chunks
@@ -50,12 +51,12 @@ class DoublePirKvServerTorch:
 
     def __init__(self, log2m: int, params: Params | None = None,
                  device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the row-sharded checklist (mesh=) is not ported: ROADMAP "
-                "Queue 1 item 6")
+        # mesh (ops/shard.Mesh): row-shard the checklist DB over the devices
+        # of its "db" axis (ChecklistServerTorch(mesh=)); ``device`` is then
+        # the mesh's home device
         self.log2m = log2m
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.home if mesh is not None else torch.device(device)
         self.num_entries = 1 << log2m
         self.params = params or pick_params(self.num_entries, 1, SEC_PARAM,
                                             LOGQ, lower_bound_m=1)
@@ -107,11 +108,12 @@ class DoublePirKvServerTorch:
         # config is refused with ValueError and takes the general branch.
         try:
             eng = ChecklistServerTorch(self.num_entries, self.params,
-                                       self.bit_bytes, device=self.device)
+                                       self.bit_bytes, device=self.device,
+                                       mesh=self.mesh)
         except ValueError:
             eng = None
         if eng is not None:
-            if self.shared_state is None:
+            if self.shared_state is None and self.mesh is None:
                 # production preprocess: the AES-derived A1/A2 stream
                 # host->device in chunks and are NEVER materialized on
                 # host (760 MB at the checklist shape); A2's upload
@@ -120,6 +122,8 @@ class DoublePirKvServerTorch:
                 # path
                 self.hint = eng.setup_streamed()
             else:
+                if self.shared_state is None:
+                    self.shared_state = scheme.init(eng.info, self.params)
                 self.hint = eng.setup(self.shared_state)
             self._engine = eng
             self.db_info = eng.info
@@ -225,15 +229,20 @@ class DoublePirKvServerTorch:
                 return
             try:
                 eng = ChecklistServerTorch(self.num_entries, self.params,
-                                           self.bit_bytes, device=self.device)
+                                           self.bit_bytes, device=self.device,
+                                           mesh=self.mesh)
                 # validate the checkpointed hint BEFORE deriving/streaming
                 # A2 (a mismatched h1 would discard that ~380 MB upload)
                 h1 = np.load(h1_path)
-                want = (self.params.n * self.params.delta(),
-                        -(-self.params.l // 3))
+                cols = -(-self.params.l // 3) if self.mesh is None \
+                    else eng.l_pad // 3
+                want = (self.params.n * self.params.delta(), cols)
                 if h1.shape != want:
                     raise ValueError(f"h1 shape {h1.shape} != {want}")
                 if self.shared_state is not None:
+                    a2_install = self.shared_state[1]
+                elif self.mesh is not None:
+                    self.shared_state = scheme.init(eng.info, self.params)
                     a2_install = self.shared_state[1]
                 else:
                     # restore path needs only A2 (answer-serving operand):
@@ -370,16 +379,18 @@ def serve_doublepir(srv: DoublePirKvServerTorch, port: int,
 
 def main(argv: list[str]) -> None:
     """python -m sdk_tpu_torch.server.doublepir_server <port> <log2m>
-           [--cpu] [--keys-file path] [--warmup] [--restore DIR] [--save DIR]
+           [--cpu] [--mesh SPEC] [--keys-file path] [--warmup]
+           [--restore DIR] [--save DIR]
 
     Serve a checklist (private membership) bucket over HTTP. The DB, the
     hint and the answer products live on the card (ChecklistServerTorch);
     --cpu runs the plain PyTorch versions on the CPU instead. --device is
-    accepted and means the default. --mesh (row-sharding the DB over
-    several cards) is not ported and is refused."""
+    accepted and means the default. --mesh SPEC (ops/shard.mesh_from_spec:
+    "4", "db=4", "dp=1,db=4") row-shards the DB over that many cards; with
+    --cpu over as many logical CPU shards."""
     import sys
 
-    args, device, keys_file = [], "cuda", None
+    args, device, keys_file, mesh_spec = [], "cuda", None, ""
     warmup, restore_dir, save_dir = False, None, None
     i = 0
     while i < len(argv):
@@ -388,9 +399,8 @@ def main(argv: list[str]) -> None:
         elif argv[i] == "--cpu":
             device = "cpu"
         elif argv[i] == "--mesh":
-            print("--mesh is not ported (ROADMAP Queue 1 item 6)",
-                  file=sys.stderr)
-            raise SystemExit(2)
+            mesh_spec = argv[i + 1]
+            i += 1
         elif argv[i] == "--keys-file":
             keys_file = argv[i + 1]
             i += 1
@@ -409,7 +419,8 @@ def main(argv: list[str]) -> None:
         print(main.__doc__, file=sys.stderr)
         raise SystemExit(2)
     port, log2m = int(args[0]), int(args[1])
-    srv = DoublePirKvServerTorch(log2m, device=device)
+    mesh = mesh_from_cli(mesh_spec, device == "cpu") if mesh_spec else None
+    srv = DoublePirKvServerTorch(log2m, device=device, mesh=mesh)
     if restore_dir:
         srv.restore_from_dir(restore_dir)
         print(f"Restored checklist from {restore_dir}", flush=True)

@@ -18,10 +18,13 @@ same read coalescer, the same flags and SDK_TPU_* environment names, plus
 Serving config (env or CLI):
     --cpu                             serve from the CPU with the kernels'
                                       plain versions (tests, no card)
-    SDK_TPU_MESH / --mesh, SDK_TPU_DENSE_LAYOUT=throughput / --dense-layout
-        throughput                    refused: sharded serving and the TPU
-                                      build's second dense layout are not
-                                      ported (ROADMAP.md, Queue 1)
+    SDK_TPU_MESH / --mesh SPEC        serve from an index cut over a
+                                      device mesh (ops/shard.py: "8",
+                                      "db=8", "dp=2,db=4"); with --cpu
+                                      over logical CPU shards
+    SDK_TPU_DENSE_LAYOUT=throughput / --dense-layout throughput
+                                      refused: the TPU build's second dense
+                                      layout is not ported (ROADMAP.md)
     SDK_TPU_BATCH_WINDOW_MS / --batch-window-ms N
         coalesce /private-read requests arriving within N ms into one
         batched DB scan, fold and pack (cross-request batching; default
@@ -48,6 +51,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..ops.shard import mesh_from_cli
 from ..params import params_from_json
 from .kv_server import SpiralKvServerTorch
 
@@ -424,9 +428,13 @@ def main(argv: list[str]):
     item_size] [--cpu] [--batch-window-ms N] [--warmup] [--restore DIR]
     [--save-on-exit DIR] [--mesh SPEC] [--dense-layout latency|throughput]
 
+    --mesh SPEC (or SDK_TPU_MESH; ops/shard.mesh_from_spec: "8", "db=8",
+    "dp=2,db=4") serves from an index cut over that many cards, dense from
+    the start; with --cpu over as many logical CPU shards (at most 8).
+
     Env knobs: SDK_TPU_BATCH_WINDOW_MS, SDK_TPU_WARMUP, SDK_TPU_RESTORE,
-    SDK_TPU_SAVE_ON_EXIT, SDK_TPU_FORCE_CPU (as --cpu); SDK_TPU_MESH and
-    SDK_TPU_DENSE_LAYOUT=throughput are refused like their flags;
+    SDK_TPU_SAVE_ON_EXIT, SDK_TPU_FORCE_CPU (as --cpu), SDK_TPU_MESH;
+    SDK_TPU_DENSE_LAYOUT=throughput is refused like its flag;
     SDK_TPU_HBM_BUDGET_BYTES sets the capacity guard's device-memory budget
     (default: the card's free memory) and SDK_TPU_NO_CAPACITY_GUARD=1
     disables the guard (kv_server._device_budget_bytes)."""
@@ -467,10 +475,6 @@ def main(argv: list[str]):
             args.append(argv[i])
             i += 1
 
-    if mesh_spec:
-        raise SystemExit(
-            "--mesh / SDK_TPU_MESH: sharded serving is not ported to "
-            "sdk_tpu_torch yet (ROADMAP.md, Queue 1: sharding)")
     if dense_layout != "latency":
         raise SystemExit(
             f"--dense-layout {dense_layout}: the port keeps one dense layout "
@@ -488,7 +492,9 @@ def main(argv: list[str]):
         params_json = DEFAULT_CFG
         params = params_from_json(params_json)
 
-    srv = SpiralKvServerTorch(params, "cpu" if cpu else "cuda", params_json)
+    mesh = mesh_from_cli(mesh_spec, cpu) if mesh_spec else None
+    srv =SpiralKvServerTorch(params, "cpu" if cpu else "cuda", params_json,
+                              mesh=mesh)
     if restore_dir:
         srv.restore_from_dir(restore_dir)
         print(f"Restored index from {restore_dir}", flush=True)

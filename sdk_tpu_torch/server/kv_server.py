@@ -8,7 +8,8 @@ queries sparsely while few first-dim rows are populated, and migrates to
 the dense index once more than dense_migrate_fill of the items are
 populated; with the key storage policies (bloom filter, key list), clear,
 rename, destroy, metrics and checkpoint / restore of the encrypted index.
-Sharding is not ported yet (ROADMAP.md, Queue 1).
+With a mesh (ops/shard.py) the bucket serves from a dense index cut over the
+mesh's devices from the start, as the JAX bucket does (kv_server.py:92-97).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..clients.bloom import BloomFilter
 from ..kv.ingest import CompactSlots, DbUpdateBuffer, compact_to_dense
 from ..ops.server import (SpiralServerTorch, index_hbm_bytes, pp_to_device,
                           serving_working_set_bytes)
+from ..ops.shard import Mesh, ShardedDb, check_mesh
 from ..ops.spiral import (CompactDb, compact_db_empty, compact_shape,
                           db_shape)
 from ..telemetry import GLOBAL_TIMERS
@@ -49,14 +51,17 @@ class BucketCapacityError(RuntimeError):
 
 
 class SpiralKvServerTorch:
-    """One bucket: Spiral params + rows + encrypted index on ``device``."""
+    """One bucket: Spiral params + rows + encrypted index on ``device``, or
+    on the devices of ``mesh`` (then ``device`` is the mesh's home)."""
 
     def __init__(self, params: Params, device="cuda",
                  params_json: str | None = None,
                  hbm_budget_bytes: int | None = None,
-                 key_storage_policy: str = "bloom"):
+                 key_storage_policy: str = "bloom",
+                 mesh: Mesh | None = None):
         self.params = params
-        self.device = torch.device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.home if mesh is not None else torch.device(device)
         self.params_json = params_json or json.dumps(params_to_json_obj(params))
         self.name = ""
         self.destroyed = False
@@ -79,7 +84,7 @@ class SpiralKvServerTorch:
         # device-memory budget of the capacity guard: None = the device's
         # free memory (torch.cuda.mem_get_info); no guard on the CPU
         self.hbm_budget_bytes = hbm_budget_bytes
-        self.engine = SpiralServerTorch(params, self.device)
+        self.engine = SpiralServerTorch(params, self.device, mesh=mesh)
         # The bucket starts in the O(populated) CompactDb layout (the
         # reference SparseDb's memory model, db/sparse_db.rs:1-48) and
         # migrates to the dense index once more than dense_migrate_fill of
@@ -88,9 +93,15 @@ class SpiralKvServerTorch:
         # index and sparse expansion give the dense path's bytes); they
         # choose the device work and memory, and their speed on this card
         # is not claimed.
+        # A sharded bucket is dense from the start: the index is cut over
+        # the mesh, with no compact index and no migration.
         self.dense_migrate_fill = 0.125
         self._migration_refused = False
-        self.engine.set_db(compact_db_empty(params, self.device))
+        if mesh is not None:
+            self._check_capacity()
+            self.engine.set_db(ShardedDb.zeros(params, mesh))
+        else:
+            self.engine.set_db(compact_db_empty(params, self.device))
         self._updates = DbUpdateBuffer(params, self.device)
         # populated item indices (an over-approximation of the nonzero DB
         # rows) drive the compacted sparse query expansion while at most
@@ -116,24 +127,29 @@ class SpiralKvServerTorch:
 
     def _check_capacity(self) -> None:
         """Refuse a dense index that cannot fit next to its serving working
-        set, before allocating it."""
+        set, before allocating it. A mesh divides the index over its "db"
+        axis (kv_server.py:148-150); the error names the escape hatches."""
         budget = self._device_budget_bytes()
         if budget is None:
             return
         params = self.params
-        idx = index_hbm_bytes(params)
+        ndev = self.mesh.shape["db"] if self.mesh is not None else 1
+        idx = index_hbm_bytes(params) // ndev
         ws = serving_working_set_bytes(params, nq=CAPACITY_NQ)
         if idx + ws <= budget:
             return
-        per_item = idx // params.num_items()
-        max_items = max((budget - ws) // per_item, 0)
+        per_item = index_hbm_bytes(params) // params.num_items()
+        max_items = max((budget - ws) * ndev // per_item, 0)
         raise BucketCapacityError(
-            f"dense index needs {idx / 1e9:.2f} GB + {ws / 1e9:.2f} GB "
-            f"serving working set, but the device budget is "
+            f"dense index needs {idx / 1e9:.2f} GB/device + {ws / 1e9:.2f} "
+            f"GB serving working set, but the device budget is "
             f"{budget / 1e9:.2f} GB. Max bucket at these params on this "
             f"budget: ~{max_items} items "
             f"({max_items * params.db_item_size / 1e9:.2f} GB of "
-            f"{params.db_item_size}-byte items).")
+            f"{params.db_item_size}-byte items). Escape hatches: serve from "
+            f"a sharded mesh (SpiralKvServerTorch(mesh=...), rows split over "
+            f"the 'db' axis) or split the bucket across hosts behind the DCN "
+            f"front end (sdk_tpu_torch.server.dcn).")
 
     # --- writes ---
 
@@ -218,7 +234,8 @@ class SpiralKvServerTorch:
                     "dense migration refused; serving stays compact: %s", e)
                 self._migration_refused = True
             else:
-                self.engine.set_db(compact_to_dense(params, self.engine.db))
+                self.engine.set_db(compact_to_dense(
+                    params, self.engine.db, self._updates.slots.bin_count))
                 self._updates.slots.clear()
         self.engine.db = self._updates.flush(self.engine.db)
         if self._pop_dirty:
@@ -323,8 +340,11 @@ class SpiralKvServerTorch:
         with self.lock:
             for r in self.rows:
                 r.clear()
-            self.engine.db = None       # drop the old index before the new
-            self.engine.set_db(compact_db_empty(self.params, self.device))
+            if self.mesh is not None:
+                self.engine.db.zero_()  # a sharded index is zeroed in place
+            else:
+                self.engine.db = None   # drop the old index before the new
+                self.engine.set_db(compact_db_empty(self.params, self.device))
             self._updates.slots = CompactSlots(self.params)
             self._updates.pending_raw.clear()
             self._populated_items.clear()
@@ -376,7 +396,9 @@ class SpiralKvServerTorch:
         the port's layout, spiral.db_shape / compact_shape), db_idx_j.npy
         (compact), rows.pkl and state.json. The index streams to the file
         one (channel, z-block) slice at a time through a memmap, so neither
-        the host nor the device holds a second copy."""
+        the host nor the device holds a second copy. A sharded index is
+        saved whole, in the same format: its checkpoint restores into an
+        unsharded bucket, and the other way round."""
         os.makedirs(path, exist_ok=True)
         with self.lock:
             self._flush()
@@ -388,7 +410,10 @@ class SpiralKvServerTorch:
             step = _z_step(planes)
             for c in range(planes.shape[0]):
                 for z0 in range(0, planes.shape[1], step):
-                    out[c, z0:z0 + step] = planes[c, z0:z0 + step].cpu().numpy()
+                    blk = (planes.read_slice(c, z0, z0 + step)
+                           if isinstance(planes, ShardedDb)
+                           else planes[c, z0:z0 + step].cpu())
+                    out[c, z0:z0 + step] = blk.numpy()
             out.flush()
             del out
             if compact:
@@ -441,7 +466,11 @@ class SpiralKvServerTorch:
         have = ((crt * L, z) + want[4:7] + (cols,)) if jax_planes else want
         if tuple(db.shape) != have:
             raise ValueError(f"checkpoint index {db.shape}, want {have}")
-        dev = torch.empty(want, dtype=torch.int8, device=self.device)
+        if self.mesh is not None:
+            # re-shard: each slice goes to the shards that hold it
+            dev = ShardedDb.zeros(params, self.mesh)
+        else:
+            dev = torch.empty(want, dtype=torch.int8, device=self.device)
         step = _z_step(dev)
         for c in range(crt):
             for z0 in range(0, z, step):
@@ -454,7 +483,10 @@ class SpiralKvServerTorch:
                     blk = np.ascontiguousarray(blk)
                 else:
                     blk = np.array(db[c, z0:z0 + step])   # off the memmap
-                dev[c, z0:z0 + step] = torch.from_numpy(blk)
+                if isinstance(dev, ShardedDb):
+                    dev.write_slice_(c, z0, z0 + step, torch.from_numpy(blk))
+                else:
+                    dev[c, z0:z0 + step] = torch.from_numpy(blk)
         return dev
 
     def restore_from_dir(self, path: str) -> None:
@@ -462,6 +494,9 @@ class SpiralKvServerTorch:
             with open(os.path.join(path, "state.json")) as f:
                 state = json.load(f)
             compact = state.get("db_format") == "compact"
+            if compact and self.mesh is not None:
+                raise ValueError("a compact checkpoint does not restore into "
+                                 "a sharded bucket, which serves dense")
             self._migration_refused = False
             # memmap: the index streams file -> device instead of being
             # materialised in host memory first
@@ -487,7 +522,10 @@ class SpiralKvServerTorch:
                     self.engine.set_db(index)
                     self._updates.slots = CompactSlots(self.params)
             except Exception:
-                self.engine.set_db(compact_db_empty(self.params, self.device))
+                self.engine.set_db(
+                    ShardedDb.zeros(self.params, self.mesh)
+                    if self.mesh is not None
+                    else compact_db_empty(self.params, self.device))
                 raise
             with open(os.path.join(path, "rows.pkl"), "rb") as f:
                 self.rows = [bytearray(r) for r in pickle.load(f)]

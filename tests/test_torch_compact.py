@@ -112,7 +112,7 @@ def test_compact_flush_growth_migration_match_jax():
     assert ct.cap_bin == 8 == cj.planes[0].shape[-1]
     assert bt.slots.slot_of[6] == slot6     # a re-upserted item keeps its slot
     want = convert.db_from_jax_planes(pt, ingest_j.compact_to_dense(pj, cj))
-    got = compact_to_dense(pt, ct)
+    got = compact_to_dense(pt, ct, bt.slots.bin_count)
     assert torch.equal(got, want)
     _, dense = port_flush(pt, {**first, **more},
                           torch.zeros(st.db_shape(pt), dtype=torch.int8))

@@ -128,11 +128,13 @@ def test_restore_config_mismatch_rebuilds(tmp_path):
 
 
 def test_mesh_is_refused_and_the_card_is_the_default():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # a mesh is an ops.shard.Mesh; --mesh wants as many cards as it names
+    with pytest.raises(TypeError, match="Mesh"):
         DoublePirKvServerTorch(LOG2M, mesh=object())
     assert DoublePirKvServerTorch(LOG2M).device.type == "cuda"
-    with pytest.raises(SystemExit):
-        ds.main(["8000", "10", "--mesh", "dp=1,db=4"])
+    if torch.cuda.device_count() < 4:
+        with pytest.raises(SystemExit):
+            ds.main(["8000", "10", "--mesh", "dp=1,db=4"])
     with pytest.raises(SystemExit):
         ds.main(["8000"])
 

@@ -114,7 +114,8 @@ def test_rejects_non_checklist_config_and_mesh():
     with pytest.raises(ValueError):
         ChecklistServerTorch(100, params, np.zeros(13, dtype=np.uint8),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # a mesh is an ops.shard.Mesh (tests/test_torch_sharded.py serves one)
+    with pytest.raises(TypeError, match="Mesh"):
         ChecklistServerTorch(NUM_ENTRIES, PARAMS, _bit_bytes(), mesh=object(),
                              device="cpu")
 

@@ -340,14 +340,20 @@ def test_clear_and_destroy_over_http():
 
 
 def test_private_read_bytes_equal_the_jax_service():
-    """The same writes and the same setup and query blobs through the JAX
-    service (sdk_tpu.server.http) and the port's: the /private-read
-    responses are the same bytes, for a two-query request body (one batched
-    dispatch on either side), for the port's single reads, and for the
-    port's coalesced batch of separate requests."""
+    """The same writes and the same setup through the JAX service
+    (sdk_tpu.server.http) and the port's: the port's /private-read
+    responses are the bytes of the JAX package's numpy oracle
+    (server_host.process_query) over the rows the JAX service holds, for a
+    two-query request body (one batched dispatch), for the port's single
+    reads, and for the port's coalesced batch of separate requests. The JAX
+    service takes the writes and the setup only: a read there would trace
+    its whole batched read program."""
     from sdk_tpu import params as params_j
+    from sdk_tpu.kv.write import compress_row as compress_row_j
     from sdk_tpu.server import http as http_j
     from sdk_tpu.server.kv_server import SpiralKvServer
+
+    from test_torch_lifecycle import oracle_db, oracle_read
 
     jax_srv = SpiralKvServer(params_j.params_from_json(CFG), CFG)
     srv = SpiralKvServerTorch(FAST, "cpu", CFG)
@@ -368,12 +374,15 @@ def test_private_read_bytes_equal_the_jax_service():
             noise_rng=ChaCha20Rng(bytes([0x54 + i]) * 32),
             query_seed=bytes([0x58 + i]) * 32).serialize(FAST)
             for i, k in enumerate(["same-1", "same-4"])]
-        got = []
         for api in apis:
             api.write("", kv)
             api._post(api.endpoint + f"/setup?uuid={uid}", json.dumps(
                 base64.b64encode(setup).decode()).encode(), compress=False)
-            got.append(api.private_read("", queries))
+        assert jax_srv.has_uuid(uid)
+        db_h = oracle_db(FAST, {i: compress_row_j(r)
+                                for i, r in enumerate(jax_srv.rows) if r})
+        got = [[oracle_read(FAST, db_h, setup, q) for q in queries],
+               apis[1].private_read("", queries)]
         assert got[0] == got[1]
         row = reframe_decoded_row(FAST, client.decode_response(got[1][1]))
         assert extract_result("same-4", bz2.BZ2Decompressor().decompress(
@@ -503,13 +512,17 @@ def test_save_on_exit_sigterm(tmp_path):
     assert read_via_protocol(srv, "durable") == b"survives sigterm"
 
 
-@pytest.mark.parametrize("flags", [("--mesh", "dp=1,db=4"),
+@pytest.mark.parametrize("flags", [("--mesh", "tp=4"),
                                    ("--dense-layout", "throughput")])
 def test_unported_serving_flags_refuse(tmp_path, flags):
+    """The TPU build's second dense layout is refused by name, and so is a
+    mesh spec that names an axis the mesh does not have (a --mesh spec that
+    parses is served: tests/test_torch_sharded.py)."""
     (tmp_path / "params.json").write_text(CFG)
     res = subprocess.run(
         [sys.executable, "-m", "sdk_tpu_torch.server.http", "0",
          str(tmp_path / "params.json"), "--cpu", *flags],
         capture_output=True, text=True, cwd=ROOT, timeout=120)
-    assert res.returncode != 0 and "ROADMAP" in res.stderr
+    want = "unknown mesh axis" if flags[0] == "--mesh" else "ROADMAP"
+    assert res.returncode != 0 and want in res.stderr
     assert "Listening" not in res.stdout

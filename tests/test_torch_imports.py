@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax():
             "sdk_tpu_torch.doublepir.kernels",
             "sdk_tpu_torch.doublepir.server_torch",
             "sdk_tpu_torch.doublepir.scheme",
-            "sdk_tpu_torch.doublepir.client"} <= set(mods)
+            "sdk_tpu_torch.doublepir.client",
+            "sdk_tpu_torch.ops.shard",
+            "sdk_tpu_torch.selfcheck",
+            "sdk_tpu_torch.server.dcn"} <= set(mods)
     code = ("import importlib, sys\n"
             "class Refuse:\n"
             "    def find_spec(self, name, path=None, target=None):\n"

@@ -321,6 +321,8 @@ def test_bucket_lifecycle_on_card(cuda, state):
     assert layout == ("dense" if state == "S3" else "compact")
     assert (counts["scan_compact"] > 0) == (state != "S3"), counts
     assert counts["expand_round"] > 0, counts
+    # S3 migrates on the read's flush, through kernel H'
+    assert counts["compact_to_dense"] == (state == "S3"), counts
 
 
 def test_batched_engine_on_card_equals_cpu(cuda):
@@ -473,3 +475,77 @@ def test_checklist_on_card_equals_cpu(cuda, config):
         assert _build.LAUNCHES["dp_matmul_u32"] == 2
         for g, w in zip(got, servers[1].answer(queries)):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["spiral", "wrapping", "unaligned"])
+@pytest.mark.parametrize("D", [2, 4, 8])
+def test_psum_mod_matches_plain(cuda, D, form):
+    """Kernel M against its plain version: the Spiral form (two channels,
+    each mod its own q), the wrapping form (q = 0) at an odd size, and parts
+    off 16-byte boundaries (the one-element path)."""
+    from sdk_tpu_torch.ops import shard
+
+    rng = np.random.default_rng(30 + D)
+    if form == "spiral":
+        # (crt, 4, 6, z): channel c below q_c
+        parts = [residues(rng, (4, 6)).permute(2, 0, 1, 3).contiguous()
+                 for _ in range(D)]
+        q = PARAMS.moduli
+    else:
+        n = 1001 if form == "wrapping" else 4096
+        parts = [torch.from_numpy(rng.integers(
+            0, 1 << 32, n + 1, dtype=np.uint64).astype(np.uint32)
+            .view(np.int32)) for _ in range(D)]
+        parts = [p[:n] if form == "wrapping" else p[1:] for p in parts]
+        q = 0
+    want = shard.psum_mod_plain(parts, q)
+    _build.reset_launches()
+    got = shard.psum_mod([p.to(cuda) for p in parts], q)
+    assert _build.LAUNCHES["psum_mod"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cap", [4, 8])
+def test_compact_to_dense_matches_plain(cuda, cap):
+    """Kernel H' against its plain version on a compact index whose bin 0
+    holds item 0 at dim0 column 0 (the idx_j every unoccupied slot carries)
+    and whose unoccupied slots hold random bytes and random idx_j: only the
+    occupied slots s < counts[b] are placed."""
+    params = PARAMS
+    rng = np.random.default_rng(40 + cap)
+    row_len = params.instances * params.n * params.n * params.bytes_per_chunk()
+    buf = ingest_t.DbUpdateBuffer(params, "cpu")
+    for i in (0, 4, 9, 17, 255):
+        buf.upsert_raw(i, rng.integers(0, 256, row_len, dtype=np.uint8)
+                       .tobytes())
+    db = buf.flush(sj.compact_db_empty(params, "cpu", cap_bin=cap))
+    counts = buf.slots.bin_count.copy()
+    planes, idx_j = db.planes.clone(), db.idx_j.clone()
+    for b in range(idx_j.shape[0]):
+        for s in range(int(counts[b]), cap):
+            planes[:, :, :, s // 4, :, :, b, s % 4] = torch.from_numpy(
+                rng.integers(1, 128, planes.shape[:3] + planes.shape[4:6],
+                             dtype=np.int8))
+            idx_j[b, s] = int(rng.integers(0, 1 << params.db_dim_1))
+    want = ingest_t.compact_to_dense_plain(params, sj.CompactDb(planes, idx_j),
+                                           counts)
+    assert want[:, :, :, 0, :, :, 0, 0].any()
+    _build.reset_launches()
+    got = ingest_t.compact_to_dense(
+        params, sj.CompactDb(planes.to(cuda), idx_j.to(cuda)), counts)
+    assert _build.LAUNCHES["compact_to_dense"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_sharded_serving_on_card(cuda):
+    """The two selfchecks over logical meshes of the card: sharded Spiral
+    and checklist responses equal unsharded serving and decode; the sums go
+    through kernel M."""
+    from sdk_tpu_torch.ops.shard import make_mesh
+    from sdk_tpu_torch.selfcheck import (sharded_doublepir_check,
+                                         sharded_protocol_check)
+
+    _build.reset_launches()
+    sharded_protocol_check(make_mesh(8, dp=2, devices=[cuda] * 8))
+    sharded_doublepir_check(make_mesh(4, devices=[cuda] * 4))
+    assert _build.LAUNCHES["psum_mod"] > 0

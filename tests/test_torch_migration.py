@@ -1,8 +1,8 @@
 """State S3 of the bucket lifecycle (see tests/test_torch_lifecycle.py): a
 compact bucket that crosses the migration limit moves to the dense index
-on its next flush, with responses byte-identical to the JAX bucket's; and a
-migration the device budget refuses leaves the bucket compact and
-serving."""
+on its next flush, with responses byte-identical to the JAX package's numpy
+oracle over the same rows; and a migration the device budget refuses leaves
+the bucket compact and serving."""
 
 import numpy as np
 
@@ -17,7 +17,6 @@ def test_s3_migration_to_dense_matches_jax():
     first = rand_rows(pair.pt, rng, range(0, 80, 4))          # 20 items
     pair.write_rows(first)
     pair.port.flush()
-    pair.jax._flush()
     assert pair.layout() == ("compact", False)
     # 40 items > 0.125 * 256: the next flush migrates, then writes
     more = rand_rows(pair.pt, rng, range(1, 200, 10))
@@ -25,10 +24,8 @@ def test_s3_migration_to_dense_matches_jax():
     rows = {**first, **more}
     targets = [41, 8, 191]
     blobs = [pair.blob(i % 2, t, 20 + i) for i, t in enumerate(targets)]
-    single = pair.read(blobs[0], with_jax=False)
-    pair.jax._flush()
+    single = pair.read(blobs[0])
     assert pair.layout() == ("dense", False)
-    assert not isinstance(pair.jax.engine.db, CompactDb)
     assert not pair.port._updates.slots.slot_of
     resps = pair.batch(blobs)
     assert resps[0] == single
@@ -44,7 +41,7 @@ def test_refused_migration_keeps_serving_compact():
     rows = rand_rows(pair.pt, np.random.default_rng(34), [3, 77])
     pair.write_rows(rows)
     blob = pair.blob(0, 77, 30)
-    resp = pair.read(blob, with_jax=False)
+    resp = pair.read(blob)
     assert pair.port._migration_refused
     assert isinstance(pair.port.engine.db, CompactDb)
     check_rows(pair, [blob], [resp], [0], rows, [77])

@@ -3,8 +3,10 @@ destroy, the key storage policies, metrics, and checkpoint / restore of the
 compact and the dense index, the last also from a checkpoint that the JAX
 bucket wrote. Responses are compared byte for byte (tolerance 0).
 
-One JAX bucket and one JAX read program (test_jax_compact_checkpoint...);
-everything else runs on the port alone.
+One JAX bucket, written to and saved but never read
+(test_jax_compact_checkpoint...): the port's responses from its checkpoint
+are held against the JAX package's numpy oracle over the JAX bucket's rows.
+Everything else runs on the port alone.
 """
 
 import base64
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from sdk_tpu import params as params_j
+from sdk_tpu.kv.write import compress_row as compress_row_j
 from sdk_tpu.server.kv_server import SpiralKvServer
 from sdk_tpu_torch import convert
 from sdk_tpu_torch.client import Client, reframe_decoded_row
@@ -27,6 +30,8 @@ from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
 from sdk_tpu_torch.rng import ChaCha20Rng
 from sdk_tpu_torch.server.kv_server import (BucketCapacityError,
                                             SpiralKvServerTorch)
+
+from test_torch_lifecycle import oracle_db, oracle_read
 
 torch.set_num_threads(1)
 FAST = get_fast_expansion_testing_params()
@@ -205,9 +210,10 @@ def test_tpu_only_checkpoint_formats_are_refused(tmp_path, kind):
 
 def test_jax_compact_checkpoint_restores_into_the_port(tmp_path):
     """A checkpoint that the JAX bucket wrote in its compact format (its
-    plane layout, its CompactSlots state) restores into the port, which then
-    answers a batch with the JAX bucket's bytes and goes on writing into the
-    restored slots."""
+    plane layout, its CompactSlots state) after writes only restores into
+    the port, which then answers a batch with the bytes of the JAX package's
+    numpy oracle (server_host) over the JAX bucket's rows, and goes on
+    writing into the restored slots as the JAX bucket does."""
     pj = params_j.params_from_json(CFG)
     jax_srv = SpiralKvServer(pj, CFG, key_storage_policy="full")
     values = {f"key-{i}": f"value-{i}".encode() * 3 for i in range(9)}
@@ -226,11 +232,12 @@ def test_jax_compact_checkpoint_restores_into_the_port(tmp_path):
 
     client, pp = session(0x16)
     uid = "2" * 36
-    jax_srv.setup_raw(pp, uid)
     srv.setup_raw(pp, uid)
     blobs = [blob_for(client, uid, k, 0x40 + 2 * i)
              for i, k in enumerate(["key-2", "key-8"])]
-    want = jax_srv.private_read_blobs(blobs)
+    db_h = oracle_db(FAST, {i: compress_row_j(r)
+                            for i, r in enumerate(jax_srv.rows) if r})
+    want = [oracle_read(FAST, db_h, pp, b) for b in blobs]
     got = srv.private_read_blobs(blobs)
     assert got == want
     assert [srv.private_read_one(b) for b in blobs] == want
