@@ -25,11 +25,16 @@ Phases (any failure exits non-zero, with no result line):
    through private_read and one 16-query batch (4 sessions x 4 queries)
    decode to the written values. Kernel I (compact scan, in S1 and S2), H'
    (dense migration, on the S2 index before it migrates) and C (dense
-   scan, in S3) are held against their plain versions on the state's index,
-   E' (expansion round) at the expansion's shapes.
+   scan on the int8 tensor cores, in S3) are held against their plain
+   versions on the state's index, E' (expansion round) at the expansion's
+   shapes; the scans are timed beside torch._int_mm over the same bytes at
+   8 and 32 columns.
 6. full size: a second bucket filled with all 2^15 seeded rows (its first
    flush stays compact, its second migrates; an 8.59 GB dense index), three
-   keys written, read through private_read and one 16-query batch.
+   keys written, read through private_read and one 16-query batch; C's
+   row: R = 2 and 32 on a z-slice and the whole index, share of bound,
+   its tilings and the build's registers and spills (-Xptxas -v); the
+   stage split of a single read and a 16-query batch.
 6b. sharded: the same rows in a bucket whose dense index is cut over a
    (dp=2, db=4) mesh of eight LOGICAL shards of the one card (dim0 128 and
    8 instance-trials a shard); the full bucket's probe blobs, a single read
@@ -75,6 +80,7 @@ import bz2
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -153,17 +159,33 @@ def bound(bytes_moved: int, ops: float, ops_per_s: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def int_mm_ms(planes: torch.Tensor) -> float:
-    """torch._int_mm over the same int8 bytes as a scan reads, against 8
-    int8 columns: the nearest library yardstick. It computes no mod-q
-    recombination and the port never calls it."""
+def int_mm_ms(planes: torch.Tensor, cols: int = 8) -> float:
+    """torch._int_mm over the same int8 bytes as a scan reads, against
+    ``cols`` int8 columns: the nearest library yardstick. It computes no
+    mod-q recombination and the port never calls it."""
     a = planes.reshape(-1, 256)
-    b = torch.ones((256, 8), dtype=torch.int8, device=planes.device)
+    b = torch.ones((256, cols), dtype=torch.int8, device=planes.device)
     try:
         return cuda_ms(lambda: torch._int_mm(a, b), 10)
     except RuntimeError as e:          # a yardstick only: record its absence
-        log(f"[library] torch._int_mm refused {tuple(a.shape)} x (256, 8): {e}")
+        log(f"[library] torch._int_mm refused {tuple(a.shape)} x "
+            f"(256, {cols}): {e}")
         return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def scan_ptxas() -> dict:
+    """Registers and spill bytes of each compiled form of kernel C, by its
+    tiles a warp (ntw), from its build's -Xptxas -v report (empty without
+    one)."""
+    from sdk_tpu_torch import _build
+
+    out = {}
+    for name, use in _build.ptxas_usage("scan").items():
+        m = re.search(r"scan_kernelILi(\d+)E", name)
+        out[f"ntw{m.group(1)}" if m else name] = use
+    return out
 
 
 def residues(params, gen: np.random.Generator, lead: tuple, dev):
@@ -676,6 +698,11 @@ def check_compact_scan(params, db, gen, table: KernelTable,
         extra[f"full_index_bound_by_R{R}"] = b["bound_by"]
         extra[f"full_index_GBps_R{R}"] = compact_bytes / full_ms / 1e6
         extra[f"full_index_share_of_bound_R{R}"] = b["bound_ms"] / full_ms
+        if R == 32:
+            extra["ms_R32"] = cuda_ms(
+                lambda: sj.firstdim_multiply(params, sl, q_sl), 10)
+            extra["library_ms_R32"] = int_mm_ms(sl.planes, 32)
+            extra["full_index_library_ms_R32"] = int_mm_ms(db.planes, 32)
         if R == 2:
             row = dict(
                 ms=cuda_ms(lambda: sj.firstdim_multiply(params, sl, q_sl), 10),
@@ -728,6 +755,8 @@ def check_dense_scan(params, db, gen, table: KernelTable, label: str) -> dict:
             row = dict(ms=extra["ms_R2"], plain_ms=extra["plain_ms_R2"],
                        bnd=zb, library_ms=int_mm_ms(db_slice))
         del q_full, q_slice, got
+    extra["library_ms_R32"] = int_mm_ms(db_slice, 32)
+    extra["full_index_library_ms_R32"] = int_mm_ms(db, 32)
     return {"row": row, "extra": extra}
 
 
@@ -853,7 +882,8 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
                 f"(cap {db.cap_bin}), R=2; the whole index in full_index_*; "
                 f"the S1 index (cap {cs1['extra']['cap_bin']}) in S1_*; "
                 f"library_ms: torch._int_mm over the same int8 bytes x 8 "
-                f"int8 columns (no mod-q recombination)",
+                f"int8 columns, *library_ms_R32 x 32 columns (no mod-q "
+                f"recombination)",
                 row["ms"], row["plain_ms"], row["bnd"], row["library_ms"],
                 **cs2["extra"],
                 **{f"S1_{k}": v for k, v in cs1["extra"].items()})
@@ -950,17 +980,28 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     srv.flush()
 
     c = check_dense_scan(params, srv.engine.db, gen, table, "full index")
+    db = srv.engine.db
+    M = int(np.prod(db.shape[4:7]))
+    tilings = {f"R{R}": sj.scan_tiling(R, M, db.shape[1], db.shape[3])._asdict()
+               for R in (2, 32)}
     table.timed("scan", "sdk_tpu_torch/csrc/scan.cu",
                 "sdk_tpu/ops/spiral_jax.py:430",
                 f"z-slice 64 of {params.poly_len} of the filled index, R=2 "
                 f"(ms, plain_ms, bound_ms, library_ms); R=32 and the whole "
                 f"index in *_R*; library_ms: torch._int_mm over the same int8 "
-                f"bytes x 8 int8 columns (no mod-q recombination)",
+                f"bytes x 8 int8 columns, *library_ms_R32 x 32 columns (no "
+                f"mod-q recombination)",
                 c["row"]["ms"], c["row"]["plain_ms"], c["row"]["bnd"],
-                c["row"]["library_ms"], **c["extra"])
-    log("[full] scan equals its plain version on the filled index "
-        "(R=2, R=32)")
-    del c
+                c["row"]["library_ms"], **c["extra"], tilings=tilings,
+                ptxas=scan_ptxas())
+    log(f"[full] scan (int8 mma.sync) equals its plain version on the "
+        f"filled index (R=2, R=32); whole index R=2 "
+        f"{c['extra']['full_index_ms_R2']:.4f} ms, R=32 "
+        f"{c['extra']['full_index_ms_R32']:.4f} ms "
+        f"({c['extra']['full_index_share_of_bound_R32']:.0%} of its bound; "
+        f"torch._int_mm x 32 columns "
+        f"{c['extra']['full_index_library_ms_R32']} ms)")
+    del c, db
 
     uids = sessions.setup(srv)
     reads, counts = launches.run(lambda: sessions.drive(
@@ -976,6 +1017,9 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
                                            260 + i) for i in range(16)]}
     out["stages_ms"] = stage_breakdown(srv, [probe["single_blob"]])
     out["stages_ms_batch16"] = stage_breakdown(srv, probe["batch_blobs"])
+    log(f"[full] 16-batch stages {out['stages_ms_batch16']} ms; scan stage "
+        f"{out['stages_ms_batch16']['scan']:.2f} ms (52.03 ms with the dp4a "
+        f"scan, PERF.md section 5)")
     probe.update(probe_reads(srv, probe, sessions, values))
     out["probe"] = {k: v for k, v in probe.items() if k.endswith("_ms")}
     # the bucket stays for phase_sharded's paired timing (two 8.59 GB

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sdk_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches by kernel name, counted where each wrapper launches.
 LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
@@ -50,7 +51,8 @@ _SIGNATURES = {
     "sdk_error_string": ("ntt", (_I,)),
     "sdk_matmul_mod": ("matmul_mod",
                        (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _U, _U, _P)),
-    "sdk_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _P)),
+    "sdk_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _U, _U, _P)),
     "sdk_scan_compact": ("scan_compact", (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _U, _U, _P)),
     "sdk_encode": ("encode", (_P, _P, _LL, _I, _I, _I, _U, _U, _U, _U, _U, _U,
@@ -98,6 +100,7 @@ def _compile(nvcc: str, src: Path, out: Path) -> None:
         raise RuntimeError(
             f"nvcc failed with exit code {res.returncode}:\n{' '.join(cmd)}\n"
             f"{res.stdout}\n{res.stderr}")
+    _ptxas_log(out).write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
 
 
@@ -126,6 +129,35 @@ def build() -> dict[str, Path]:
         if errors:
             raise RuntimeError("\n".join(errors))
     return libs
+
+
+def _ptxas_log(out: Path) -> Path:
+    return out.with_suffix(".ptxas.txt")
+
+
+def ptxas_usage(stem: str) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel in csrc/<stem>.cu, by
+    mangled name, from the ``-Xptxas -v`` report of its build; empty when
+    the build left no report."""
+    path = _ptxas_log(build()[stem])
+    if not path.exists():
+        return {}
+    usage, name = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def lib() -> dict:

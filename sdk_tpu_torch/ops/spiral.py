@@ -255,7 +255,7 @@ def firstdim_multiply_plain(params: Params, db: torch.Tensor,
 
 def _column_blocks(R: int, smem_per_column: int,
                    pad: int = 0) -> tuple[int, int]:
-    """(rt, rb) of the scan kernels: rt columns per thread (2, 4 or 8) and
+    """(rt, rb) of the compact scan I: rt columns per thread (2, 4 or 8) and
     rb per block, the largest multiple of rt that divides R, is at most 32
     and keeps the block's query limbs (rb + pad columns of them) within the
     shared memory."""
@@ -269,24 +269,81 @@ def _column_blocks(R: int, smem_per_column: int,
     return rt, rb
 
 
-def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor):
+class ScanTiling(NamedTuple):
+    """How kernel C cuts its work (see csrc/scan.cu): a block takes cgb
+    column groups of ntw 8-column tiles (ncb blocks across the R columns)
+    and wm x mtw m16 tiles (bx blocks across the M rows), with the query
+    limbs of kc k32 steps (a multiple of the two of an iteration) in shared
+    memory."""
+
+    ntw: int
+    ncb: int
+    cgb: int
+    wm: int
+    mtw: int
+    bx: int
+    kc: int
+
+
+_SCAN_SMEM = 128 * 1024    # query fragments of a block: 1 KB a (step, tile)
+_SCAN_BLOCKS = 1056        # eight blocks an SM of the H100's 132
+
+
+def scan_tiling(R: int, M: int, Z: int, JW: int, ntw: int | None = None,
+                warps: int | None = None,
+                mtw: int | None = None) -> ScanTiling:
+    """Kernel C's tiling for R columns, M rows, Z z-slices of two channels
+    and JW words of dim0 (defaults from the sweep of
+    tools/scan_bench_gpu.py on the H100, PERF.md). ntw (tiles of a warp):
+    the widest of 4, 2, 1 that divides the R / 8 tiles; a block has at most
+    ``warps`` warps (4 at ntw 4, whose 252 registers a thread leave room
+    for two such blocks an SM, else 8); a warp of one tile takes one m16
+    tile (many short blocks: no wave of blocks is left half full), wider
+    warps take as many m16 tiles as keep enough blocks to fill the card."""
+    nt = -(-R // 8)
+    if ntw is None:
+        ntw = next(w for w in (4, 2, 1) if nt % w == 0)
+    if warps is None:
+        warps = 4 if ntw == 4 else 8
+    if ntw not in (1, 2, 4) or not 1 <= warps <= 8:
+        raise ValueError(f"scan tiling: ntw {ntw}, warps {warps}")
+    groups = -(-nt // ntw)
+    cgb = min(groups, warps)
+    ncb = -(-groups // cgb)
+    wm = max(1, warps // cgb)
+    nks = -(-JW // 8)
+    kc = min(-(-nks // 2), _SCAN_SMEM // (2048 * cgb * ntw)) * 2
+    mt = -(-M // 16)
+    if mtw is None and ntw == 1:
+        mtw = 1
+    if mtw is None:
+        bx = max(1, min(-(-mt // wm), -(-_SCAN_BLOCKS // (2 * Z * ncb))))
+        mtw = -(-mt // (wm * bx))
+    mtw = min(mtw, -(-mt // wm))
+    bx = -(-mt // (wm * mtw))
+    return ScanTiling(ntw, ncb, cgb, wm, mtw, bx, kc)
+
+
+def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor,
+                 tiling: ScanTiling | None = None):
     crt, z, L, jw, inst, trials, npr, _ = db.shape
     R = q_arr.shape[-1]
+    M = inst * trials * npr
     if (db.dtype != torch.int8 or q_arr.dtype != torch.int32
             or q_arr.shape != (crt, z, 4 * jw, R) or crt != 2 or R % 2
-            or 4 * jw > 1 << 15):     # int32 weight sums: 4*127^2*dim0 < 2^31
+            or 4 * jw > 1 << 15       # int32 weight sums: 4*127^2*dim0 < 2^31
+            or 4 * jw * M >= 1 << 31):
         raise ValueError(f"scan: db {db.dtype} {tuple(db.shape)}, query "
                          f"{q_arr.dtype} {tuple(q_arr.shape)}")
     q_arr = q_arr.contiguous()
     _build.require_cuda(db, q_arr)
-    rt, rb = _column_blocks(R, 16 * jw)
-    M = inst * trials * npr
+    tl = tiling or scan_tiling(R, M, z, jw)
     out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
                       device=db.device)
     q0, q1 = params.moduli
     _build.launch("scan", "sdk_scan", db.device, db.data_ptr(),
-                  q_arr.data_ptr(), out.data_ptr(), z, M, jw, R, rb, rt, q0,
-                  q1, _build.stream_of(db))
+                  q_arr.data_ptr(), out.data_ptr(), z, M, jw, R, *tl, q0, q1,
+                  _build.stream_of(db))
     return out
 
 

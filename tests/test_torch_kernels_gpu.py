@@ -86,17 +86,64 @@ def test_matmul_mod_matches_plain(cuda, keyed):
     assert torch.equal(got, want)
 
 
+# (z, instances, trials, num_per, dim0): JW = dim0 / 4 words of dim0, M =
+# instances * trials * num_per rows
+_SCAN_SHAPES = {"base": (64, 1, 4, 64, 64), "jw1": (8, 1, 4, 16, 4),
+                "jw2": (8, 1, 4, 16, 8), "jw3": (8, 1, 4, 16, 12),
+                "m8": (8, 1, 1, 8, 64)}
+
+
 @pytest.mark.parametrize("R", [2, 6, 8, 32, 34, 64])
-def test_scan_matches_plain(cuda, R):
+@pytest.mark.parametrize("shape", list(_SCAN_SHAPES))
+def test_scan_matches_plain(cuda, shape, R):
+    """Kernel C (int8 tensor-core MMA): the base shape and the tails, JW
+    not a multiple of 8 words (a k32 step) and M not a multiple of 16."""
+    z, inst, trials, npr, dim0 = _SCAN_SHAPES[shape]
     rng = np.random.default_rng(3)
-    vals = np.stack([rng.integers(0, q, (64, 1, 4, 4, 64))
+    vals = np.stack([rng.integers(0, q, (z, inst, trials, npr, dim0))
                      for q in PARAMS.moduli])
     db = sj.db_limbs(PARAMS, torch.from_numpy(vals))
     q_arr = torch.from_numpy(np.stack(
-        [rng.integers(0, q, (64, 64, R)) for q in PARAMS.moduli]
+        [rng.integers(0, q, (z, dim0, R)) for q in PARAMS.moduli]
     ).astype(np.int32))
     got = sj.firstdim_multiply(PARAMS, db.to(cuda), q_arr.to(cuda)).cpu()
     assert torch.equal(got, sj.firstdim_multiply_plain(PARAMS, db, q_arr))
+
+
+@pytest.mark.parametrize("R", [2, 32])
+def test_scan_weight_group_bound(cuda, R):
+    """dim0 = 2^15 with every limb of both operands 127: the weight group
+    s = 3 sums 4 * 127^2 * 2^15 = 2,114,060,288 < 2^31 in int32, and the
+    query limbs span more k32 steps than shared memory holds at once."""
+    dim0 = 1 << 15
+    full = (1 << 28) - 1              # four limbs of 127
+    vals = np.full((2, 2, 1, 1, 16, dim0), full, dtype=np.int64)
+    db = sj.db_limbs(PARAMS, torch.from_numpy(vals))
+    assert int(db.min()) == int(db.max()) == 127
+    q_arr = torch.full((2, 2, dim0, R), full, dtype=torch.int32)
+    got = sj.firstdim_multiply(PARAMS, db.to(cuda), q_arr.to(cuda)).cpu()
+    assert torch.equal(got, sj.firstdim_multiply_plain(PARAMS, db, q_arr))
+
+
+@pytest.mark.parametrize("ntw", [1, 2, 4])
+def test_scan_tilings_match_plain(cuda, ntw):
+    """Every compiled form of kernel C (1, 2 or 4 tiles a warp) at R = 32
+    over JW = 27 words (a tail of 3 in the last k32 step) and 24 rows: as
+    tiled, with the query limbs refilled every iteration, and with one block
+    along m whose warps take their m16 tiles one after another."""
+    rng = np.random.default_rng(4)
+    vals = np.stack([rng.integers(0, q, (4, 1, 3, 8, 108))
+                     for q in PARAMS.moduli])
+    db = sj.db_limbs(PARAMS, torch.from_numpy(vals))
+    q_arr = torch.from_numpy(np.stack(
+        [rng.integers(0, q, (4, 108, 32)) for q in PARAMS.moduli]
+    ).astype(np.int32))
+    want = sj.firstdim_multiply_plain(PARAMS, db, q_arr)
+    base = sj.scan_tiling(32, 24, 4, 27, ntw=ntw, warps=2)
+    for tl in (base, base._replace(kc=2),
+               base._replace(bx=1, mtw=-(-2 // base.wm))):
+        got = sj._scan_launch(PARAMS, db.to(cuda), q_arr.to(cuda), tl).cpu()
+        assert torch.equal(got, want), tl
 
 
 @pytest.mark.parametrize("R", [2, 6, 32])
