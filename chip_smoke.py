@@ -175,16 +175,19 @@ def int_mm_ms(planes: torch.Tensor, cols: int = 8) -> float:
         torch.cuda.empty_cache()
 
 
-def scan_ptxas() -> dict:
-    """Registers and spill bytes of each compiled form of kernel C, by its
-    tiles a warp (ntw), from its build's -Xptxas -v report (empty without
+def ptxas_forms(stem: str, params: tuple) -> dict:
+    """Registers and spill bytes of each compiled form of the kernel in
+    csrc/<stem>.cu, keyed by its template arguments (named ``params``,
+    e.g. ntw4_sw8), from its build's -Xptxas -v report (empty without
     one)."""
     from sdk_tpu_torch import _build
 
     out = {}
-    for name, use in _build.ptxas_usage("scan").items():
-        m = re.search(r"scan_kernelILi(\d+)E", name)
-        out[f"ntw{m.group(1)}" if m else name] = use
+    for name, use in _build.ptxas_usage(stem).items():
+        m = re.search(r"kernelI((?:Li\d+E)+)E", name)
+        key = "_".join(f"{p}{v}" for p, v in zip(
+            params, re.findall(r"\d+", m.group(1)))) if m else name
+        out[key] = use
     return out
 
 
@@ -680,7 +683,11 @@ def check_compact_scan(params, db, gen, table: KernelTable,
     zs = 64
     sl = sj.CompactDb(db.planes[:, :zs].contiguous(), db.idx_j)
     compact_bytes = nbytes(db.planes)
-    extra = {"cap_bin": db.cap_bin, "compact_bytes": compact_bytes}
+    npr = db.idx_j.shape[0]
+    extra = {"cap_bin": db.cap_bin, "compact_bytes": compact_bytes,
+             # torch._int_mm's int32 output over the same bytes at 32
+             # columns, beside I's own output (full_index_out_bytes_R*)
+             "library_out_bytes_R32": compact_bytes // 256 * 32 * 4}
     for R in (2, 32):
         q_full = query_cols(params, gen, params.poly_len, R, db.planes.device)
         q_sl = q_full[:, :zs].contiguous()
@@ -690,6 +697,9 @@ def check_compact_scan(params, db, gen, table: KernelTable,
         table.check("scan_compact", f"{state} R={R} whole index", max_abs_err(
             sj.firstdim_multiply(params, db, q_full)[:, :zs], got))
         out_bytes = 4 * got.numel() * (params.poly_len // zs)
+        extra[f"full_index_out_bytes_R{R}"] = out_bytes
+        extra[f"tiling_R{R}"] = sj.compact_scan_tiling(
+            R, npr, 1 << params.db_dim_1, db.cap_bin)._asdict()
         full_ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_full), 5)
         b = bound(compact_bytes + nbytes(db.idx_j, q_full) + out_bytes,
                   2 * compact_bytes * 4 * R, INT8_OPS_PER_S)
@@ -886,10 +896,12 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
                 f"recombination)",
                 row["ms"], row["plain_ms"], row["bnd"], row["library_ms"],
                 **cs2["extra"],
-                **{f"S1_{k}": v for k, v in cs1["extra"].items()})
+                **{f"S1_{k}": v for k, v in cs1["extra"].items()},
+                ptxas=ptxas_forms("scan_compact", ("ntw", "sw")))
     log(f"[lifecycle] I equals its plain version on the S2 index (R=2, 32); "
         f"whole index R=2 {cs2['extra']['full_index_ms_R2']:.4f} ms, R=32 "
-        f"{cs2['extra']['full_index_ms_R32']:.4f} ms")
+        f"{cs2['extra']['full_index_ms_R32']:.4f} ms (torch._int_mm x 32 "
+        f"columns {cs2['extra']['full_index_library_ms_R32']} ms)")
     check_expand_round(params, splan, gen, dev, table)
     log("[lifecycle] E' equals its plain version (B = 1, 64, 512, left and "
         "right keys, the widest S1 sparse round)")
@@ -993,7 +1005,7 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
                 f"mod-q recombination)",
                 c["row"]["ms"], c["row"]["plain_ms"], c["row"]["bnd"],
                 c["row"]["library_ms"], **c["extra"], tilings=tilings,
-                ptxas=scan_ptxas())
+                ptxas=ptxas_forms("scan", ("ntw",)))
     log(f"[full] scan (int8 mma.sync) equals its plain version on the "
         f"filled index (R=2, R=32); whole index R=2 "
         f"{c['extra']['full_index_ms_R2']:.4f} ms, R=32 "

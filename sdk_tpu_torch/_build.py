@@ -54,7 +54,8 @@ _SIGNATURES = {
     "sdk_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _U, _U, _P)),
     "sdk_scan_compact": ("scan_compact", (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _I, _I, _I, _U, _U, _P)),
+                                          _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _U, _U, _P, _P)),
     "sdk_encode": ("encode", (_P, _P, _LL, _I, _I, _I, _U, _U, _U, _U, _U, _U,
                               _U, _ULL, _U, _P)),
     "sdk_expand_round": ("expand_round", (_P, _P, _P, _P, _LL, _I, _I, _I,

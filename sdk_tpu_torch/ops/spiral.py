@@ -25,6 +25,8 @@ holds columns 4*jw .. 4*jw+3 (see csrc/scan.cu). The compact DB
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -253,22 +255,6 @@ def firstdim_multiply_plain(params: Params, db: torch.Tensor,
     return acc.to(torch.int32).reshape(crt, z, inst, trials, npr, -1)
 
 
-def _column_blocks(R: int, smem_per_column: int,
-                   pad: int = 0) -> tuple[int, int]:
-    """(rt, rb) of the compact scan I: rt columns per thread (2, 4 or 8) and
-    rb per block, the largest multiple of rt that divides R, is at most 32
-    and keeps the block's query limbs (rb + pad columns of them) within the
-    shared memory."""
-    rt = 8 if R % 8 == 0 else 4 if R % 4 == 0 else 2
-    rb = max((d for d in range(rt, min(R, 32) + 1, rt)
-              if R % d == 0 and smem_per_column * (d + pad) <= 200 * 1024),
-             default=0)
-    if rb == 0:
-        raise ValueError(f"scan: {smem_per_column} B of query limbs per column "
-                         f"leave no shared memory for {rt} columns")
-    return rt, rb
-
-
 class ScanTiling(NamedTuple):
     """How kernel C cuts its work (see csrc/scan.cu): a block takes cgb
     column groups of ntw 8-column tiles (ncb blocks across the R columns)
@@ -428,7 +414,88 @@ def firstdim_multiply_compact_plain(params: Params, db: CompactDb,
     return acc.to(torch.int32).reshape(crt, z, inst, trials, npr, -1)
 
 
-def _scan_compact_launch(params: Params, db: CompactDb, q_arr: torch.Tensor):
+class CompactScanTiling(NamedTuple):
+    """How kernel I cuts its work (see csrc/scan_compact.cu): a block packs
+    the query limbs of rb columns (ncb blocks across the R columns; a warp
+    runs ntw 8-column tiles over them) and takes gpb groups of 64 / sw bins
+    (nbb blocks across the num_per bins), with ns stages of sw slot words
+    (ns - 1 steps' copies in flight), copied 16 bytes at a time (vec 1) or
+    4."""
+
+    ntw: int
+    rb: int
+    ncb: int
+    gpb: int
+    nbb: int
+    ns: int
+    vec: int
+    sw: int
+
+
+_COMPACT_SMEM = 232448     # dynamic shared memory a block can have (H100)
+
+
+def compact_scan_smem(rb: int, dim0: int, ns: int, sw: int = 8) -> int:
+    """Shared bytes of a kernel-I block: ns stages of DB words (16 KB) and
+    the idx_j of 64 / sw bins, the epilogue constants and the packed query
+    limbs of dim0 rows x rb columns (rows padded by a word at rb >= 8)."""
+    ld = rb + 1 if rb >= 8 else rb
+    return 4 * (ns * (4096 + 32 * (64 // sw)) + 16 + dim0 * ld)
+
+
+@functools.lru_cache(maxsize=None)
+def compact_scan_tiling(R: int, npr: int, dim0: int, cap: int,
+                        ntw: int | None = None, gpb: int | None = None,
+                        rb: int | None = None, ns: int | None = None,
+                        vec: int | None = None,
+                        sw: int | None = None) -> CompactScanTiling:
+    """Kernel I's tiling for R columns, npr bins, dim0 query rows and cap
+    slots a bin (defaults from the sweep of tools/scan_bench_gpu.py --kernel
+    compact on the H100, PERF.md). ntw (tiles of a warp): 4 above 16
+    columns, 2 above 8, else 1; a block takes rb = min(R, 8 ntw) columns
+    and the most of 4 stages that fit, half the columns (and ntw with them)
+    while even two stages do not fit; a stage holds sw = 8 slot words of 8
+    bins, or at cap 16 / 8 the 4 / 2 words there are of 16 / 32 bins; 16-byte
+    copies where a row's bins are 16-byte aligned (npr % 4 == 0). A block
+    takes all the bins of its (channel, z), so that it packs the query once,
+    but for one 8-column tile over more than one k32 step: then two groups,
+    so that the blocks that share a 128-byte line of the index run side by
+    side (one block walks a line's four groups 4 steps apart, and the L2
+    loses the line between)."""
+    if sw is None:
+        sw = 2 if cap <= 8 else 4 if cap <= 16 else 8
+
+    def fits(rb_, ns_):
+        return compact_scan_smem(rb_, dim0, ns_, sw) <= _COMPACT_SMEM
+
+    if ntw is None and rb is None:
+        rb = min(R, 32 if R > 16 else 16 if R > 8 else 8)
+        while rb > 2 and not fits(rb, ns or 2):
+            rb = max(2, rb // 2 & ~1)
+        ntw = 1 if rb <= 8 else 2 if rb <= 16 else 4
+    if rb is None:
+        rb = min(R, 8 * max(ntw, 1))
+    if ns is None:
+        ns = next((n for n in (4, 3, 2) if fits(rb, n)), 2)
+    if vec is None:
+        vec = int(npr % 4 == 0)
+    if (ntw not in (1, 2, 4) or rb < 2 or rb % 2 or rb > 8 * ntw or R % 2
+            or ns not in (2, 3, 4) or not fits(rb, ns)
+            or vec not in (0, 1) or (vec and npr % 4)
+            or not (sw == 8 or (sw in (2, 4) and cap <= 4 * sw))):
+        raise ValueError(f"scan_compact tiling: ntw {ntw}, rb {rb}, ns {ns}, "
+                         f"vec {vec}, sw {sw}, R {R}, npr {npr}, dim0 {dim0}, "
+                         f"cap {cap}")
+    nbg = -(-npr // (64 // sw))
+    if gpb is None:
+        gpb = 2 if ntw == 1 and cap > 32 else nbg
+    gpb = max(1, min(gpb, nbg))
+    return CompactScanTiling(ntw, rb, -(-R // rb), gpb, -(-nbg // gpb), ns,
+                             vec, sw)
+
+
+def _scan_compact_launch(params: Params, db: CompactDb, q_arr: torch.Tensor,
+                         tiling: CompactScanTiling | None = None):
     planes, idx_j = db
     crt, z, L, cw, inst, trials, npr, _ = planes.shape
     dim0, R = q_arr.shape[-2:]
@@ -442,16 +509,38 @@ def _scan_compact_launch(params: Params, db: CompactDb, q_arr: torch.Tensor):
                          f"{tuple(q_arr.shape)}")
     q_arr = q_arr.contiguous()
     _build.require_cuda(planes, idx_j, q_arr)
-    rt, rb = _column_blocks(R, 4 * dim0, pad=1)   # rows padded by a word
+    tl = tiling or compact_scan_tiling(R, npr, dim0, 4 * cw)
+    if planes.data_ptr() % 16:            # rows not 16-byte aligned
+        tl = tl._replace(vec=0)
+    if idx_j.data_ptr() % 16:
+        idx_j = idx_j.clone()
     M = inst * trials * npr
     out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
                       device=planes.device)
     q0, q1 = params.moduli
     _build.launch("scan_compact", "sdk_scan_compact", planes.device,
                   planes.data_ptr(), idx_j.data_ptr(), q_arr.data_ptr(),
-                  out.data_ptr(), z, M, npr, cw, dim0, R, rb, rt, q0, q1,
+                  out.data_ptr(), z, M, npr, cw, dim0, R, *tl, q0, q1,
+                  ctypes.addressof(_epilogue_array(q0, q1)),
                   _build.stream_of(planes))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _epilogue_array(q0: int, q1: int):
+    """Both channels' epilogue constants as the uint32 [2][10] the kernel
+    takes (kept alive by the cache)."""
+    return (ctypes.c_uint32 * 20)(*epilogue_constants(q0),
+                                  *epilogue_constants(q1))
+
+
+def epilogue_constants(q: int) -> list[int]:
+    """Kernel I's epilogue constants for modulus q: w_s = 2^{7s} mod q for
+    s < 7, then c = 2^32 mod q and Shoup's floor(2^32 c / q) and
+    floor(2^32 / q)."""
+    c = (1 << 32) % q
+    return [pow(2, 7 * s, q) for s in range(7)] + [c, (c << 32) // q,
+                                                   (1 << 32) // q]
 
 
 # ---------------------------------------------------------------------------

@@ -146,25 +146,129 @@ def test_scan_tilings_match_plain(cuda, ntw):
         assert torch.equal(got, want), tl
 
 
-@pytest.mark.parametrize("R", [2, 6, 32])
-@pytest.mark.parametrize("cap", [8, 16])
-def test_scan_compact_matches_plain(cuda, cap, R):
-    """Kernel I: random limbs and slot columns, a zero (unoccupied) slot
-    tail in every bin."""
-    rng = np.random.default_rng(6)
-    npr, dim0 = 4, 64
-    vals = np.stack([rng.integers(0, q, (64, 1, 4, npr, cap))
-                     for q in PARAMS.moduli])
-    vals[..., cap - 3:] = 0
-    idx_j = np.stack([rng.permutation(dim0)[:cap] for _ in range(npr)])
-    idx_j[:, cap - 3:] = 0
+def _compact_case(rng, rows, npr, cap, dim0, R, z=16, full=False):
+    """A compact index of rows = instances x trials rows a bin: random limbs
+    and slot columns with a zero (unoccupied, idx 0) slot tail in every bin
+    and an occupied slot at column 0 in bin 0, or every limb 127."""
+    inst, trials = rows // 4, 4
+    if full:
+        vals = np.full((2, z, inst, trials, npr, cap), (1 << 28) - 1)
+        q_arr = np.full((2, z, dim0, R), (1 << 28) - 1)
+    else:
+        vals = np.stack([rng.integers(0, q, (z, inst, trials, npr, cap))
+                         for q in PARAMS.moduli])
+        vals[..., cap - 3:] = 0
+        q_arr = np.stack([rng.integers(0, q, (z, dim0, R))
+                          for q in PARAMS.moduli])
+    idx_j = np.stack([rng.choice(dim0, cap, replace=cap > dim0)
+                      for _ in range(npr)])
+    if not full:
+        idx_j[:, cap - 3:] = 0
+        idx_j[0, 0] = 0
     db = sj.CompactDb(sj.db_limbs(PARAMS, torch.from_numpy(vals)),
                       torch.from_numpy(idx_j.astype(np.int32)))
+    return db, torch.from_numpy(q_arr.astype(np.int32))
+
+
+def _compact_on(db, cuda):
+    return sj.CompactDb(db.planes.to(cuda), db.idx_j.to(cuda))
+
+
+@pytest.mark.parametrize("R", [2, 6, 32, 34])
+@pytest.mark.parametrize("cap", [8, 16, 128])
+@pytest.mark.parametrize("rows", [4, 16, 24])
+def test_scan_compact_matches_plain(cuda, rows, cap, R):
+    """Kernel I: rows a bin 4, 16 (one m16 tile) and 24 (two, the second
+    half empty), caps below one k32 step and of four, R from one read to
+    past one column block, 12 bins (a partial group of 8)."""
+    rng = np.random.default_rng(6 + rows + cap + R)
+    db, q_arr = _compact_case(rng, rows, 12, cap, 256, R)
+    got = sj.firstdim_multiply(PARAMS, _compact_on(db, cuda),
+                               q_arr.to(cuda)).cpu()
+    assert torch.equal(got, sj.firstdim_multiply_compact_plain(PARAMS, db,
+                                                               q_arr))
+
+
+def test_scan_compact_column_zero_beside_unoccupied_slots(cuda):
+    """An occupied slot at column 0 beside unoccupied zero slots whose idx_j
+    is 0 too: only the occupied one adds."""
+    z, npr, cap, dim0, R = 4, 8, 8, 64, 32
+    vals = np.zeros((2, z, 1, 4, npr, cap), dtype=np.int64)
+    vals[:, :, :, :, :, 0] = 12345
+    vals[:, :, :, :, 3, 5] = 777
+    idx_j = np.zeros((npr, cap), dtype=np.int32)
+    idx_j[3, 5] = 9
+    rng = np.random.default_rng(11)
     q_arr = torch.from_numpy(np.stack(
-        [rng.integers(0, q, (64, dim0, R)) for q in PARAMS.moduli]
+        [rng.integers(0, q, (z, dim0, R)) for q in PARAMS.moduli]
     ).astype(np.int32))
-    got = sj.firstdim_multiply(PARAMS, sj.CompactDb(
-        db.planes.to(cuda), db.idx_j.to(cuda)), q_arr.to(cuda)).cpu()
+    db = sj.CompactDb(sj.db_limbs(PARAMS, torch.from_numpy(vals)),
+                      torch.from_numpy(idx_j))
+    got = sj.firstdim_multiply(PARAMS, _compact_on(db, cuda),
+                               q_arr.to(cuda)).cpu()
+    want = sj.firstdim_multiply_compact_plain(PARAMS, db, q_arr)
+    assert torch.equal(got, want)
+    assert int(want.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("R", [2, 32])
+def test_scan_compact_widest_dim0_all_limbs_127(cuda, R):
+    """The widest dim0 a block's shared memory takes at this R, every limb
+    of both operands 127, cap 2^15 (the int32 weight-group bound)."""
+    dim0 = max(d for d in range(1, 25000)
+               if sj.compact_scan_smem(2, d, 2) <= sj._COMPACT_SMEM)
+    tl = sj.compact_scan_tiling(R, 8, dim0, 1 << 15)
+    assert sj.compact_scan_smem(tl.rb, dim0, tl.ns) <= sj._COMPACT_SMEM
+    db, q_arr = _compact_case(np.random.default_rng(12), 4, 8, 1 << 15, dim0,
+                              R, z=2, full=True)
+    got = sj.firstdim_multiply(PARAMS, _compact_on(db, cuda),
+                               q_arr.to(cuda)).cpu()
+    assert torch.equal(got, sj.firstdim_multiply_compact_plain(PARAMS, db,
+                                                               q_arr))
+
+
+@pytest.mark.parametrize("ntw", [1, 2, 4])
+def test_scan_compact_tilings_match_plain(cuda, ntw):
+    """Every compiled form of kernel I (1, 2 or 4 tiles a warp) at R = 34
+    over 24 rows a bin, cap 44 and 20 bins (a partial group of 8): the
+    default column block of the form, its narrowest (rb = 2) with two
+    stages and 4-byte copies, and one bin group a block with three."""
+    rng = np.random.default_rng(13 + ntw)
+    db, q_arr = _compact_case(rng, 24, 20, 44, 96, 34, z=4)
+    want = sj.firstdim_multiply_compact_plain(PARAMS, db, q_arr)
+    dbc, qc = _compact_on(db, cuda), q_arr.to(cuda)
+    for tl in (sj.compact_scan_tiling(34, 20, 96, 44, ntw=ntw),
+               sj.compact_scan_tiling(34, 20, 96, 44, ntw=ntw, rb=2, ns=2,
+                                      vec=0),
+               sj.compact_scan_tiling(34, 20, 96, 44, ntw=ntw, gpb=1, ns=3)):
+        got = sj._scan_compact_launch(PARAMS, dbc, qc, tl).cpu()
+        assert torch.equal(got, want), tl
+
+
+@pytest.mark.parametrize("cap", [8, 16])
+def test_scan_compact_stage_widths(cuda, cap):
+    """Caps 8 and 16 with their narrow stages (2 / 4 slot words of 32 / 16
+    bins) and with the full one (8 words of 8 bins), 40 bins (a partial
+    group) and 24 rows a bin."""
+    rng = np.random.default_rng(15 + cap)
+    db, q_arr = _compact_case(rng, 24, 40, cap, 64, 32, z=4)
+    want = sj.firstdim_multiply_compact_plain(PARAMS, db, q_arr)
+    dbc, qc = _compact_on(db, cuda), q_arr.to(cuda)
+    narrow = sj.compact_scan_tiling(32, 40, 64, cap)
+    assert narrow.sw == cap // 4
+    for tl in (narrow, narrow._replace(vec=0),
+               sj.compact_scan_tiling(32, 40, 64, cap, sw=8)):
+        got = sj._scan_compact_launch(PARAMS, dbc, qc, tl).cpu()
+        assert torch.equal(got, want), tl
+
+
+def test_scan_compact_unaligned_bins(cuda):
+    """num_per 6: rows of bins not 16-byte aligned take 4-byte copies."""
+    rng = np.random.default_rng(14)
+    db, q_arr = _compact_case(rng, 16, 6, 36, 80, 10, z=4)
+    assert sj.compact_scan_tiling(10, 6, 80, 36).vec == 0
+    got = sj.firstdim_multiply(PARAMS, _compact_on(db, cuda),
+                               q_arr.to(cuda)).cpu()
     assert torch.equal(got, sj.firstdim_multiply_compact_plain(PARAMS, db,
                                                                q_arr))
 
