@@ -15,7 +15,11 @@ Phases (any failure exits non-zero, with no result line):
 3. kernels: A, A', B, D and the fused F (fold round), G (pack), H (ingest)
    against their plain PyTorch versions on the card at the main path's
    shapes (1 GiB bucket), exactly (integer results, tolerance 0), timed
-   with CUDA events beside their bounds.
+   with CUDA events beside their bounds: A and A' at 8,192 polynomials and
+   at the read path's 24, 6,144 (the expansion's rounds 1 and 9) and
+   65,536 (the 16-batch's fold input), each checked whole; F at every
+   round of a fold at NQ = 1 and 16, every query checked, and the whole
+   fold.
 4. small configs: whole responses of the port on the card byte-identical to
    the port on the CPU (the plain versions), decoded by the port's Client.
 5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
@@ -63,7 +67,9 @@ Phases (any failure exits non-zero, with no result line):
    hint setup with the real AES-derived A1/A2, 8-query membership batches
    through the port's client: members found, a non-member's bits decode
    to 0, a tampered query does not decode.
-11. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
+11. device times: A, A' and F at the shapes of 3 from torch.profiler,
+   last, because a profiler session slows the launches that follow it.
+12. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
    10, each must be > 0), memory, wall times, and the kernel table as one
    JSON line; then the card, and as the last line, the device (count 1:
    the mesh of 6b is logical shards of that one card).
@@ -124,6 +130,28 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name: str, iters: int):
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over iters calls of fn, from torch.profiler (CUDA events over back-to-
+    back calls of a short kernel carry the wrapper's host time); None when
+    three traces in a row hold no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a trace now and then comes back without them
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0) or
+                 getattr(e, "cuda_time_total", 0)
+                 for e in prof.key_averages() if name in e.key)
+        if us:
+            return us / iters / 1e3
+    return None
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -263,8 +291,16 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
     any_u32 = torch.from_numpy(any_u32.astype(np.uint32).view(np.int32)).to(dev)
     src = "sdk_tpu_torch/csrc/ntt.cu"
     tables = ntt.tables(params, dev)
-    # 1024 butterflies per stage x 11 stages per poly, ~6 integer ops each
-    ntt_ops = 6 * x.numel() // 2 * params.poly_len_log2
+
+    def ntt_bound(inp):
+        # 1024 butterflies per stage x 11 stages per poly, ~6 integer ops each
+        ops = BUTTERFLY_OPS * inp.numel() // 2 * params.poly_len_log2
+        return bound(2 * nbytes(inp) + nbytes(tables), ops, INT32_OPS_PER_S)
+
+    # the read path's other counts: 24 and 6,144 polynomials (the
+    # expansion's rounds r = 1 and 9: 12 B of them, B = 2^r) and 65,536 (the
+    # 16-batch's fold input, from_ntt at ops/shard.py:285)
+    path = {n: residues(params, gen, (n // 2,), dev) for n in (24, 6144, 65536)}
     for name, fn, plain, replaces, inputs in (
             ("ntt_forward", ntt.ntt_forward, ntt.ntt_forward_plain,
              "sdk_tpu/ops/ntt_jax.py:199", (x, digits, any_u32)),
@@ -273,11 +309,20 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
         for i, inp in enumerate(inputs):
             table.check(name, ("residues", "digits", "any uint32")[i],
                         max_abs_err(fn(params, inp), plain(params, inp)))
-        table.timed(name, src, replaces, "(4096, 2, 2048) int32 residues",
+        extra = {}
+        for n, inp in path.items():
+            table.check(name, f"{n} polynomials", max_abs_err(
+                fn(params, inp), plain(params, inp)))
+            torch.cuda.empty_cache()
+            extra.update({
+                f"polys{n}_ms": cuda_ms(lambda: fn(params, inp), 20),
+                f"polys{n}_bound_ms": ntt_bound(inp)["bound_ms"]})
+        table.timed(name, src, replaces, "(4096, 2, 2048) int32 residues; "
+                    "24, 6144 and 65536 polynomials in the other keys",
                     cuda_ms(lambda: fn(params, x), 20),
-                    cuda_ms(lambda: plain(params, x), 3),
-                    bound(2 * nbytes(x) + nbytes(tables), ntt_ops,
-                          INT32_OPS_PER_S))
+                    cuda_ms(lambda: plain(params, x), 3), ntt_bound(x),
+                    **extra)
+    del path
 
     # B: the fold round [V_neg|V_fold] @ digits (k = 4*t_gsw, batch
     # IT*num_per/2), the keyed expansion product, the keyed v1 pack product
@@ -337,6 +382,24 @@ def transform_ops(n_two_channel: int, params) -> int:
             * BUTTERFLY_OPS)
 
 
+def fold_case(params, gen: np.random.Generator, nq: int, in_slots: int, dev):
+    """A fold round's input at NQ queries (per-query keys): random raw cts
+    of (nq, it, in_slots) slots with a == 0, b == 0 and both zero planted
+    in query 0."""
+    it = params.instances * params.n * params.n
+    cts = torch.from_numpy(gen.integers(
+        0, params.modulus, (nq, it, in_slots, 2, 1, params.poly_len),
+        dtype=np.int64))
+    half = in_slots // 2
+    cts[0, 0, 0] = 0                      # a == 0: takes b
+    cts[0, 1, half] = 0                   # b == 0: takes a
+    cts[0, 2, 0] = 0
+    cts[0, 2, half] = 0                   # both: stays zero
+    keys = [residues(params, gen, (nq, params.db_dim_2, 2, 2 * params.t_gsw),
+                     dev) for _ in range(2)]
+    return cts.to(dev), keys[0], keys[1]
+
+
 def phase_fused_kernels(params, dev, table: KernelTable) -> None:
     """F, G and H against their plain versions at the 1 GiB bucket's shapes,
     and G and H once on other parameter sets (version 0; p = 16)."""
@@ -351,20 +414,8 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
     num_per = 1 << params.db_dim_2
     ell = 2 * params.t_gsw
 
-    # ---- F: round 0 (num_per -> num_per/2: 512 slots a query) and the last
-    # round (2 -> 1: 16 slots), NQ = 1 and 16, per-query keys
-    def fold_case(nq: int, in_slots: int):
-        cts = torch.from_numpy(gen.integers(
-            0, params.modulus, (nq, it, in_slots, 2, 1, z), dtype=np.int64))
-        half = in_slots // 2
-        cts[0, 0, 0] = 0                      # a == 0: takes b
-        cts[0, 1, half] = 0                   # b == 0: takes a
-        cts[0, 2, 0] = 0
-        cts[0, 2, half] = 0                   # both: stays zero
-        keys = [residues(params, gen, (nq, params.db_dim_2, 2, ell), dev)
-                for _ in range(2)]
-        return cts.to(dev), keys[0], keys[1]
-
+    # ---- F: every round (num_per -> num_per/2: 512 slots a query, ..., 2 ->
+    # 1: 16 slots), NQ = 1 and 16, per-query keys
     def fold_bound(cts, nq):
         a, b = cts[:, :, :cts.shape[2] // 2], cts[:, :, cts.shape[2] // 2:]
         live = int((a.flatten(3).any(-1) & b.flatten(3).any(-1)).sum())
@@ -375,14 +426,14 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
         return bound(nbytes(cts) + nbytes(cts) // 2 + key_bytes, ops,
                      INT32_OPS_PER_S), live
 
-    fold_ms = {}
+    fold_ms, whole = {}, {}
     for nq in (1, 16):
-        for label, in_slots, key in (("round 0", num_per, params.db_dim_2 - 1),
-                                     ("last round", 2, 0)):
-            cts, vn, vf = fold_case(nq, in_slots)
+        for r in range(params.db_dim_2):
+            in_slots, key = num_per >> r, params.db_dim_2 - 1 - r
+            cts, vn, vf = fold_case(params, gen, nq, in_slots, dev)
             got = sj._fold_round_launch(params, cts, vn, vf, key, 1)
-            for q in sorted({0, nq // 2, nq - 1}):   # plain: a query a time
-                table.check("fold_round", f"{label} NQ={nq} query {q}",
+            for q in range(nq):                 # plain: a query a time
+                table.check("fold_round", f"round {r} NQ={nq} query {q}",
                             max_abs_err(got[q:q + 1], sj.fold_round_plain(
                                 params, cts[q:q + 1], vn[q:q + 1, key],
                                 vf[q:q + 1, key])))
@@ -390,32 +441,39 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
                     and torch.equal(got[0, 1, 0], cts[0, 1, 0])
                     and not got[0, 2, 0].any()):
                 raise AssertionError("fold_round: zero slots not verbatim")
-            ms = cuda_ms(lambda: sj._fold_round_launch(params, cts, vn, vf,
-                                                       key, 1), 10)
             bnd, live = fold_bound(cts, nq)
-            fold_ms[(nq, label)] = (ms, bnd, live)
-            if nq == 1 and in_slots == num_per:
-                plain_ms = cuda_ms(lambda: sj.fold_round_plain(
-                    params, cts, vn[:, key], vf[:, key]), 2)
-                whole = cuda_ms(lambda: sj.fold_ciphertexts(params, cts, vf,
-                                                            vn), 5)
-                shape = f"{tuple(cts.shape)} int64 -> {tuple(got.shape)}"
+            fold_ms[(nq, r)] = {
+                "ms": cuda_ms(lambda: sj._fold_round_launch(
+                    params, cts, vn, vf, key, 1), 10),
+                "bound_ms": bnd["bound_ms"], "live_slots": live,
+                "tiling": "cluster {}".format(
+                    *sj.fold_tiling(nq * it * in_slots // 2, params.t_gsw))}
+            if r == 0:
+                if nq == 1:
+                    plain_ms = cuda_ms(lambda: sj.fold_round_plain(
+                        params, cts, vn[:, key], vf[:, key]), 2)
+                    shape = f"{tuple(cts.shape)} int64 -> {tuple(got.shape)}"
+                    bnd0 = bnd
+                whole[nq] = cuda_ms(lambda: sj.fold_ciphertexts(
+                    params, cts, vf, vn), 5)
             del cts, vn, vf, got
-    ms, bnd, live = fold_ms[(1, "round 0")]
-    extra = {"live_slots": live, "whole_fold_ms_nq1": whole}
-    for (nq, label), (m, b, lv) in fold_ms.items():
-        tag = f"nq{nq}_{'round0' if label == 'round 0' else 'last_round'}"
-        extra.update({f"{tag}_ms": m, f"{tag}_bound_ms": b["bound_ms"],
-                      f"{tag}_live_slots": lv})
+    from sdk_tpu_torch import _build
+
+    extra = {"whole_fold_ms_nq1": whole[1], "whole_fold_ms_nq16": whole[16],
+             "blocks_per_sm": _build.lib()["sdk_fold_round_occupancy"](),
+             "ptxas": _build.ptxas_usage("fold_round")}
+    for (nq, r), row in fold_ms.items():
+        extra.update({f"nq{nq}_round{r}_{k}": v for k, v in row.items()})
     table.timed("fold_round", "sdk_tpu_torch/csrc/fold_round.cu",
                 "sdk_tpu/ops/spiral_jax.py:818",
                 f"round 0 of one query's fold: {shape}, keys (1, "
-                f"{params.db_dim_2}, 2, {ell}, 2, {z}) int32 x 2; the last "
-                f"round, NQ = 16 and a whole six-round fold in the other keys",
-                ms, plain_ms, bnd, None, **extra)
-    log(f"[kernels] F equals its plain version (round 0 and the last round, "
-        f"NQ = 1 and 16, zero slots verbatim); round 0 NQ=1 {ms:.4f} ms, "
-        f"NQ=16 {fold_ms[(16, 'round 0')][0]:.4f} ms, whole fold {whole:.4f} ms")
+                f"{params.db_dim_2}, 2, {ell}, 2, {z}) int32 x 2; every "
+                f"round at NQ = 1 and 16 and the whole fold in the other keys",
+                fold_ms[(1, 0)]["ms"], plain_ms, bnd0, None, **extra)
+    log(f"[kernels] F equals its plain version (every round, NQ = 1 and 16, "
+        f"zero slots verbatim); round 0 NQ=1 {fold_ms[(1, 0)]['ms']:.4f} ms, "
+        f"NQ=16 {fold_ms[(16, 0)]['ms']:.4f} ms, whole fold NQ=1 "
+        f"{whole[1]:.4f} ms, NQ=16 {whole[16]:.4f} ms")
 
     # ---- G: 4 instances, NQ = 1 and 16, per-query keys; version 0 once
     def pack_case(prm, nq: int):
@@ -528,6 +586,41 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
         f"scattered {ing_ms['scattered']:.4f} ms, compact "
         f"{ing_ms['compact']:.4f} ms")
 
+
+
+def phase_device_times(params, dev, table: KernelTable) -> None:
+    """Device times of A, A' and F from torch.profiler on fresh inputs of
+    the shapes the kernel phases timed with CUDA events (which carry the
+    wrapper's host time at small shapes). Run last: CUPTI's tracing stays
+    attached to the process and slows every launch that follows a profiler
+    session (tools/read_stages_gpu.py), so no wall time is taken after it."""
+    from sdk_tpu_torch.ops import ntt, spiral as sj
+
+    gen = np.random.default_rng(SEED + 9)
+    for n in (8192, 24, 6144, 65536):
+        x = residues(params, gen, (n // 2,), dev)
+        for name, fn in (("ntt_forward", ntt.ntt_forward),
+                         ("ntt_inverse", ntt.ntt_inverse)):
+            key = "device_ms" if n == 8192 else f"polys{n}_device_ms"
+            table.rows[name][key] = device_ms(lambda: fn(params, x),
+                                              "ntt_kernel", 20)
+        del x
+    num_per = 1 << params.db_dim_2
+    for nq in (1, 16):
+        for r in range(params.db_dim_2):
+            cts, vn, vf = fold_case(params, gen, nq, num_per >> r, dev)
+            key = params.db_dim_2 - 1 - r
+            table.rows["fold_round"][f"nq{nq}_round{r}_device_ms"] = device_ms(
+                lambda: sj._fold_round_launch(params, cts, vn, vf, key, 1),
+                "fold_round_kernel", 10)
+            del cts, vn, vf
+    torch.cuda.empty_cache()
+    row = table.rows["fold_round"]
+    log("[device times] torch.profiler: A 8192 polys "
+        f"{table.rows['ntt_forward']['device_ms']} ms, A' "
+        f"{table.rows['ntt_inverse']['device_ms']} ms; F NQ=1 rounds "
+        + ", ".join(f"{row[f'nq1_round{r}_device_ms']}"
+                    for r in range(params.db_dim_2)) + " ms")
 
 
 def random_rows(params, gen, idxs) -> dict:
@@ -2118,6 +2211,7 @@ def main() -> int:
         "path's shapes")
     phase_doublepir_small(dev)
     checklist = phase_checklist_full(dev, table, launches)
+    phase_device_times(params, dev, table)
 
     for name in _build.LAUNCHES:
         n = launches.total.get(name, 0)

@@ -65,7 +65,8 @@ _SIGNATURES = {
     "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
                                             _P)),
     "sdk_fold_round": ("fold_round", (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
-                                      _I, _I, _I, _U, _U, _ULL, _P)),
+                                      _I, _I, _I, _U, _U, _ULL, _I, _P)),
+    "sdk_fold_round_occupancy": ("fold_round", ()),
     "sdk_pack": ("pack", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U,
                           _U, _ULL, _P)),
     "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL,

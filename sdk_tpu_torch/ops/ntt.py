@@ -6,6 +6,14 @@ sdk_tpu/ops/ntt_jax.py and the host oracle sdk_tpu/ntt_host.py. A CUDA
 tensor runs the hand-written kernel (csrc/ntt.cu); a CPU tensor runs the
 plain version beside it.
 
+The kernel (and kernel F, csrc/fold_round.cu) runs on the transform core of
+csrc/ntt_device.cuh: 128 threads a 2048-point polynomial, 16 coefficients a
+thread, three passes of butterflies in registers with two exchanges through
+a padded shared buffer. :data:`CORE_PASSES`, :func:`core_index`,
+:func:`core_pad` and :func:`core_twiddle` give its index maps and twiddle
+indices as the CUDA code computes them; tests/test_torch_ntt_fold_schedule.py
+emulates the passes with them.
+
 The forward transform takes any uint32 bit pattern and returns the exact
 transform of the input mod q_c: the plain version reduces every input first,
 the kernel's lazy Harvey butterflies take [0, 4q_c) and reduce what lies
@@ -26,6 +34,42 @@ from .modops import moduli_column, u32_bits
 
 _TABLES: dict = {}
 
+CORE_LOG_N = 11                 # the core's polynomials: n = 2048
+CORE_GROUP = 128                # threads a polynomial
+CORE_PER = 16                   # coefficients a thread
+# (layout, stages S, t_lo) of the forward passes, strides t_lo * 2^(S-1)
+# down to t_lo; the inverse runs them in the reverse order, each pass's
+# stages reversed
+CORE_PASSES = (("a", 3, 256), ("b", 4, 16), ("c", 4, 1))
+
+
+def core_index(layout: str, j, i):
+    """Coefficient x that thread j of a group holds as v[i] in a layout
+    (ntt_device.cuh la_/lb_/lc_base + off; numpy arrays broadcast)."""
+    if layout == "a":
+        return 2 * j + (i & 1) + 256 * (i >> 1)
+    if layout == "b":
+        return 256 * (j >> 4) + (j & 15) + 16 * i
+    if layout == "c":
+        return 16 * j + i
+    raise ValueError(f"core layout {layout!r}")
+
+
+def core_pad(x):
+    """Word of coefficient x in an exchange buffer (ntt_device.cuh pad)."""
+    return x + (x >> 5)
+
+
+def core_twiddle(layout: str, S: int, t_lo: int, j, s: int, i):
+    """Twiddle-table index of the butterfly in stage s (stride t_lo *
+    2^(S-1-s)) of a pass whose lower element is the thread's v[i], as the
+    kernel computes it: (m_unit + G) * 2^s + (i' >> (S - s)), i' the
+    element's index in its unit."""
+    units = CORE_PER >> S
+    m_unit = (1 << CORE_LOG_N) // (t_lo << S)
+    G = 0 * j if layout == "a" else j >> 4 if layout == "b" else j
+    return ((m_unit + G) << s) + ((i // units) >> (S - s))
+
 
 def tables(params: Params, device) -> torch.Tensor:
     """(crt, 4, n) int32 bit patterns of (w, w', w_inv, w_inv') per channel
@@ -38,10 +82,13 @@ def tables(params: Params, device) -> torch.Tensor:
 
 
 def _launch(params: Params, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    if x.dtype != torch.int32 or x.shape[-2:] != (2, params.poly_len):
-        raise ValueError(f"expected int32 (..., 2, {params.poly_len}), got "
-                         f"{x.dtype} {tuple(x.shape)}")
+    if (x.dtype != torch.int32 or x.shape[-2:] != (2, params.poly_len)
+            or params.poly_len_log2 != CORE_LOG_N):
+        raise ValueError(f"expected int32 (..., 2, {1 << CORE_LOG_N}), got "
+                         f"{x.dtype} {tuple(x.shape)} at n = {params.poly_len}")
     x = x.contiguous()
+    if x.data_ptr() % 16:                 # the kernel loads 16 bytes a thread
+        x = x.clone()
     tb = tables(params, x.device)
     _build.require_cuda(x, tb)
     out = torch.empty_like(x)

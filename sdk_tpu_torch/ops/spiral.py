@@ -853,15 +853,48 @@ def fold_round_plain(params: Params, cts: torch.Tensor, v_neg: torch.Tensor,
     return torch.where(za, b, torch.where(zb, a, f))
 
 
+class FoldTiling(NamedTuple):
+    """How kernel F cuts a round (see csrc/fold_round.cu): a slot's digit
+    polynomials split over a thread block cluster of ``cluster`` 256-thread
+    blocks (two 128-thread transform groups, one a CRT channel)."""
+
+    cluster: int
+
+
+@functools.lru_cache(maxsize=None)
+def fold_tiling(slots: int, t_gsw: int,
+                cluster: int | None = None) -> FoldTiling:
+    """Kernel F's tiling for a round of ``slots`` output slots (defaults
+    from the sweep of tools/scan_bench_gpu.py --kernel fold on the H100,
+    PERF.md): one block a slot from 128 slots up, else a cluster of 2
+    blocks a slot from 32 slots up and of 4 below."""
+    if cluster is None:
+        cluster = 1 if slots >= 128 else 2 if slots >= 32 else 4
+    if cluster not in (1, 2, 4) or cluster > 4 * t_gsw:
+        raise ValueError(f"fold tiling: cluster {cluster}, t_gsw {t_gsw}")
+    return FoldTiling(cluster)
+
+
+def fold_digit_split(t_gsw: int, cluster: int) -> list[range]:
+    """The digit polynomials d = (which, r, k) -> which * 2 t_gsw + r * t_gsw
+    + k of a slot that each block of a cluster takes (csrc/fold_round.cu
+    d0, d1)."""
+    n = 4 * t_gsw
+    return [range(rank * n // cluster, (rank + 1) * n // cluster)
+            for rank in range(cluster)]
+
+
 def _fold_round_launch(params: Params, cts: torch.Tensor, v_folding_neg,
-                       v_folding, key: int, vb: int) -> torch.Tensor:
+                       v_folding, key: int, vb: int,
+                       tiling: FoldTiling | None = None) -> torch.Tensor:
     """Kernel F (csrc/fold_round.cu) on one round; the keys are the whole
     (*vb, db_dim_2, 2, ell, crt, n) tensors, the round's matrix is picked by
-    offset."""
+    offset. ``tiling`` overrides :func:`fold_tiling` (sweeps)."""
     n = params.poly_len
     num_per = cts.shape[-4] // 2
     if (cts.dtype != torch.int64 or cts.shape[-3:] != (2, 1, n)
             or cts.shape[-4] != 2 * num_per or params.crt_count != 2
+            or params.poly_len_log2 != 11
             or v_folding.dtype != torch.int32
             or v_folding_neg.dtype != torch.int32):
         raise ValueError(f"fold_round: cts {cts.dtype} {tuple(cts.shape)}, "
@@ -869,6 +902,9 @@ def _fold_round_launch(params: Params, cts: torch.Tensor, v_folding_neg,
     cts = cts.contiguous()
     v_folding = v_folding.contiguous()
     v_folding_neg = v_folding_neg.contiguous()
+    # 16-byte loads of int64 pairs and of key words
+    cts, v_folding, v_folding_neg = (t.clone() if t.data_ptr() % 16 else t
+                                     for t in (cts, v_folding, v_folding_neg))
     tb = ntt_tables(params, cts.device)
     _build.require_cuda(cts, v_folding, v_folding_neg, tb)
     lead = cts.shape[:-4]
@@ -879,13 +915,15 @@ def _fold_round_launch(params: Params, cts: torch.Tensor, v_folding_neg,
     ell = 2 * params.t_gsw
     mat = 2 * ell * 2 * n                   # words of one round's key matrix
     q0, q1 = params.moduli
+    tl = tiling or fold_tiling(entries * num_per, params.t_gsw)
     _build.launch("fold_round", "sdk_fold_round", cts.device, cts.data_ptr(),
                   out.data_ptr(), v_folding_neg.data_ptr() + 4 * key * mat,
                   v_folding.data_ptr() + 4 * key * mat, tb.data_ptr(),
                   entries, num_per, entries // max(nq, 1),
                   params.db_dim_2 * mat if vb else 0, params.t_gsw,
                   _get_bits_per(params, params.t_gsw), params.poly_len_log2,
-                  q0, q1, params.inv_q0_mod_q1, _build.stream_of(cts))
+                  q0, q1, params.inv_q0_mod_q1, tl.cluster,
+                  _build.stream_of(cts))
     return out
 
 

@@ -44,16 +44,19 @@ def residues(rng, lead, params=PARAMS):
     return torch.from_numpy(x.astype(np.int32))
 
 
-def test_ntt_matches_plain(cuda):
+@pytest.mark.parametrize("count", [1, 2, 3, 24, 96, 6144, 8192])
+def test_ntt_matches_plain(cuda, count):
+    """A and A' on (count, 2, n) residues and digit-range inputs, against
+    the plain versions on the card."""
     rng = np.random.default_rng(1)
-    x = residues(rng, (96,))
-    digits = torch.from_numpy(rng.integers(0, 1 << 19, (96, 2, 2048))
-                              .astype(np.int32))
-    for inp in (x, digits):
-        got = ntt.ntt_forward(PARAMS, inp.to(cuda)).cpu()
-        assert torch.equal(got, ntt.ntt_forward_plain(PARAMS, inp))
-    got = ntt.ntt_inverse(PARAMS, x.to(cuda)).cpu()
-    assert torch.equal(got, ntt.ntt_inverse_plain(PARAMS, x))
+    x = residues(rng, (count,)).to(cuda)
+    digits = torch.from_numpy(rng.integers(0, 1 << 19, (count, 2, 2048))
+                              .astype(np.int32)).to(cuda)
+    want_f = [ntt.ntt_forward_plain(PARAMS, inp) for inp in (x, digits)]
+    want_i = ntt.ntt_inverse_plain(PARAMS, x)
+    for inp, want in zip((x, digits), want_f):
+        assert torch.equal(ntt.ntt_forward(PARAMS, inp), want)
+    assert torch.equal(ntt.ntt_inverse(PARAMS, x), want_i)
     torch.cuda.synchronize()
 
 
@@ -320,14 +323,38 @@ P16 = params_from_json(
     ' "version": 0}')
 
 
+FOLD_CLUSTERS = (1, 2, 4)
+
+
+def _fold_every_round(params, cts, vn, vf, per_query, cuda):
+    """Each round of the fold through _fold_round_launch at every tiling
+    form, against fold_round_plain on the same round's input."""
+    vb = 1 if per_query else 0
+    dev_keys = vn.to(cuda), vf.to(cuda)
+    cur = cts
+    for cur_dim in range(params.db_dim_2):
+        key = params.db_dim_2 - 1 - cur_dim
+        sel = (slice(None),) * vb + (key,)
+        want = sj.fold_round_plain(params, cur, vn[sel], vf[sel])
+        slots = int(np.prod(cur.shape[:-4])) * cur.shape[-4] // 2
+        dev = cur.to(cuda)
+        for c in FOLD_CLUSTERS:
+            tl = sj.fold_tiling(slots, params.t_gsw, c)
+            got = sj._fold_round_launch(params, dev, *dev_keys, key, vb, tl)
+            assert torch.equal(got.cpu(), want), (cur_dim, tl)
+        cur = want
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
 @pytest.mark.parametrize("per_query", [False, True])
 @pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["t_gsw8", "t_gsw7"])
-def test_fold_matches_plain(cuda, params, per_query):
+def test_fold_matches_plain(cuda, params, per_query, nq):
     """Kernel F, every round of a fold, against fold_round_plain: random
     keys, slots with a, b or both exactly zero, one key set or one per
-    query."""
+    query; each round at every tiling form (clusters of 1, 2 and 4
+    blocks)."""
     rng = np.random.default_rng(31)
-    nq, it = 3, 2
+    it = 2
     num_per = 1 << params.db_dim_2
     lead = (nq,) if per_query else ()
     vf = residues(rng, lead + (params.db_dim_2, 2, 2 * params.t_gsw), params)
@@ -337,16 +364,34 @@ def test_fold_matches_plain(cuda, params, per_query):
         dtype=np.int64))
     cts[:, :, 0] = 0                       # a == 0
     cts[:, 0, num_per // 2 + 1] = 0        # b == 0
-    cts[1, 1, 1] = 0
-    cts[1, 1, num_per // 2 + 1] = 0        # both
-    cts[2, 1] = 0                          # an empty entry
+    if nq > 1:
+        cts[1, 1, 1] = 0
+        cts[1, 1, num_per // 2 + 1] = 0    # both
+        cts[nq - 1, 1] = 0                 # an empty entry
     _build.reset_launches()
     got = sj.fold_ciphertexts(params, cts.to(cuda), vf.to(cuda),
                               vn.to(cuda)).cpu()
     assert _build.LAUNCHES["fold_round"] == params.db_dim_2
     assert _build.LAUNCHES["matmul_mod"] == 0
     assert torch.equal(got, sj.fold_ciphertexts(params, cts, vf, vn))
-    assert not got[2, 1].any()
+    if nq > 1:
+        assert not got[nq - 1, 1].any()
+    _fold_every_round(params, cts, vn, vf, per_query, cuda)
+
+
+@pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["t_gsw8", "t_gsw7"])
+def test_fold_all_digits_at_maximum(cuda, params):
+    """Every digit of a and b at its maximum and every key word q - 1: the
+    largest 64-bit accumulators, at every tiling form."""
+    bits = sj._get_bits_per(params, params.t_gsw)
+    top = min((1 << (bits * params.t_gsw)) - 1, (1 << 63) - 1)
+    num_per = 1 << params.db_dim_2
+    cts = torch.full((2, 2, num_per, 2, 1, params.poly_len), top,
+                     dtype=torch.int64)
+    keys = torch.from_numpy(np.stack(
+        [np.full((params.db_dim_2, 2, 2 * params.t_gsw, params.poly_len),
+                 q - 1) for q in params.moduli], axis=-2).astype(np.int32))
+    _fold_every_round(params, cts, keys, keys.clone(), False, cuda)
 
 
 @pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["v0", "v1"])

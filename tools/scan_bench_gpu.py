@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time kernel C (the dense first-dimension scan) or kernel I (the compact
 scan) of sdk_tpu_torch on one CUDA card, on a random index of the 1 GiB
-bucket's full size.
+bucket's full size; or kernels A / A' (the NTT) or F (the fold round) at
+the 1 GiB bucket's read-path shapes.
 
-    python3 tools/scan_bench_gpu.py [--kernel dense|compact] [--root DIR]
-                                    [--sweep] [--iters N] [--columns 2,32]
+    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold]
+                                    [--root DIR] [--sweep] [--iters N]
+                                    [--columns 2,32]
 
 Builds the kernels of the sdk_tpu_torch package found under ``--root``
 (default: this checkout). ``--kernel dense`` (the default) fills an 8.59 GB
@@ -23,6 +25,21 @@ one call time two checkouts in turn, each in its own process (parent,
 change, change, parent). ``--sweep`` also times every tiling that
 ``scan_tiling`` or ``compact_scan_tiling`` offers (a checkout that has
 one).
+
+``--kernel ntt`` times A and A' on (count, 2, 2048) residues at the
+polynomial counts of the read path: 24 and 6,144 (the expansion's rounds r
+= 1 and 9), 8,192, and 65,536 (the 16-batch's fold input), each checked
+whole against the plain version, with
+CUDA events over back-to-back calls and with the kernel's device time from
+torch.profiler (the events carry the wrapper's host time at small counts).
+``--kernel fold`` times F on every round of a fold at NQ = 1 and 16 (per-
+query keys; round r has 16 NQ 2^(5-r) output slots) and the whole fold,
+each round checked against the plain version on every query. Both give the
+bounds (bytes at the HBM rate, butterflies at 6 operations at the 32-bit
+peak), the build's registers and spills, F's blocks an SM
+(cudaOccupancyMaxActiveBlocksPerMultiprocessor) and, with cuobjdump, the
+static SASS instruction counts of the kernels; ``--sweep`` times every
+tiling that ``fold_tiling`` offers.
 """
 
 from __future__ import annotations
@@ -33,28 +50,148 @@ import os
 import subprocess
 import sys
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)          # this checkout's chip_smoke helpers
+
+from chip_smoke import (BUTTERFLY_OPS, HBM_BYTES_PER_S,  # noqa: E402
+                        INT8_OPS_PER_S, INT32_OPS_PER_S, cuda_ms, device_ms)
+
 SEED = 20261017
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12        # H100 SXM int8 tensor-core peak (dense)
+NTT_COUNTS = (24, 6144, 8192, 65536)
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def sass_counts(path: str) -> dict:
+    """Static SASS instructions of each kernel in a built library, total
+    and by opcode, from cuobjdump -sass; empty without cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=False).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"total": 0, "ops": {}}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and name:
+            op = m.group(1).split(".")[0]
+            out[name]["total"] += 1
+            out[name]["ops"][op] = out[name]["ops"].get(op, 0) + 1
+    return out
+
+
+def kernel_report(_build, stem: str) -> dict:
+    """Registers and spills (ptxas) and SASS counts of csrc/<stem>.cu."""
+    rep = {}
+    if hasattr(_build, "ptxas_usage"):
+        rep["ptxas"] = _build.ptxas_usage(stem)
+    rep["sass"] = sass_counts(str(_build.build()[stem]))
+    return rep
+
+
+def bench_ntt(torch, params, dev, gen, args) -> dict:
+    """A and A' at the read path's polynomial counts."""
+    from sdk_tpu_torch.ops import ntt
+
+    tables = ntt.tables(params, dev)
+    out = {}
+    for count in NTT_COUNTS:
+        x = torch.stack([torch.randint(0, q, (count // 2, params.poly_len),
+                                       dtype=torch.int32, device=dev,
+                                       generator=gen)
+                         for q in params.moduli], dim=1)
+        for name, fn, plain in (("forward", ntt.ntt_forward,
+                                 ntt.ntt_forward_plain),
+                                ("inverse", ntt.ntt_inverse,
+                                 ntt.ntt_inverse_plain)):
+            if not torch.equal(fn(params, x), plain(params, x)):
+                raise AssertionError(f"ntt {name} {count}: kernel != plain")
+            torch.cuda.empty_cache()
+        moved = 2 * x.numel() * 4 + tables.numel() * 4
+        ops = count * params.poly_len // 2 * params.poly_len_log2 * BUTTERFLY_OPS
+        bnd = max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        row = {"bound_ms": bnd}
+        for name, inv in (("forward", False), ("inverse", True)):
+            fn = ntt.ntt_inverse if inv else ntt.ntt_forward
+            row[f"{name}_ms"] = cuda_ms(lambda: fn(params, x),
+                                        args.iters)
+            row[f"{name}_device_ms"] = device_ms(
+                lambda: fn(params, x), "ntt_kernel", args.iters)
+        out[f"polys{count}"] = row
+        del x
+    return out
+
+
+def bench_fold(torch, params, dev, gen, args) -> dict:
+    """F on every round at NQ = 1 and 16, and the whole fold."""
+    from sdk_tpu_torch.ops import spiral as sj
+
+    it = params.instances * params.n * params.n
+    ell = 2 * params.t_gsw
+    z = params.poly_len
+    out = {}
+    for nq in (1, 16):
+        keys = [torch.stack([torch.randint(
+            0, q, (nq, params.db_dim_2, 2, ell, z), dtype=torch.int32,
+            device=dev, generator=gen) for q in params.moduli], dim=-2)
+            for _ in range(2)]
+        vn, vf = keys
+        cts0 = torch.randint(0, params.modulus, (nq, it, 1 << params.db_dim_2,
+                                                 2, 1, z), dtype=torch.int64,
+                             device=dev, generator=gen)
+        cts = cts0
+        for r in range(params.db_dim_2):
+            key = params.db_dim_2 - 1 - r
+            got = sj._fold_round_launch(params, cts, vn, vf, key, 1)
+            for q in range(nq):              # plain: a query a time
+                if not torch.equal(got[q:q + 1], sj.fold_round_plain(
+                        params, cts[q:q + 1], vn[q:q + 1, key],
+                        vf[q:q + 1, key])):
+                    raise AssertionError(f"fold NQ={nq} round {r} query {q}: "
+                                         f"kernel != plain")
+            slots = nq * it * cts.shape[2] // 2
+            ops = slots * (2 * (2 * ell + 2) * z // 2 * params.poly_len_log2
+                           * BUTTERFLY_OPS + 2 * ell * 4 * z * 2)
+            moved = cts.numel() * 8 * 3 // 2 + nq * 2 * 2 * ell * 2 * z * 4
+            row = {"slots": slots,
+                   "bound_ms": max(moved / HBM_BYTES_PER_S,
+                                   ops / INT32_OPS_PER_S) * 1e3,
+                   "ms": cuda_ms(lambda: sj._fold_round_launch(
+                       params, cts, vn, vf, key, 1), args.iters),
+                   "device_ms": device_ms(lambda: sj._fold_round_launch(
+                       params, cts, vn, vf, key, 1), "fold_round_kernel",
+                       args.iters)}
+            if args.sweep and hasattr(sj, "fold_tiling"):
+                row["tiling"] = sj.fold_tiling(slots, params.t_gsw)._asdict()
+                forms = {sj.fold_tiling(slots, params.t_gsw, c)
+                         for c in (1, 2, 4)}
+                row["sweep_device_ms"] = {
+                    "_".join(f"{k}{v}" for k, v in tl._asdict().items()):
+                    device_ms(lambda: sj._fold_round_launch(
+                        params, cts, vn, vf, key, 1, tl),
+                        "fold_round_kernel", args.iters)
+                    for tl in sorted(forms)}
+            out[f"nq{nq}_round{r}"] = row
+            cts = got
+        out[f"nq{nq}_whole_fold_ms"] = cuda_ms(
+            lambda: sj.fold_ciphertexts(params, cts0, vf, vn),
+            args.iters)
+        del keys, vn, vf, cts0, cts, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def int_mm_ms(torch, planes, cols: int, iters: int) -> float:
     a = planes.view(-1, 256)
     b = torch.ones((256, cols), dtype=torch.int8, device=planes.device)
-    return cuda_ms(torch, lambda: torch._int_mm(a, b), iters)
+    return cuda_ms(lambda: torch._int_mm(a, b), iters)
 
 
 def bench_compact(torch, sj, params, dev, gen, cap: int, args) -> dict:
@@ -83,7 +220,7 @@ def bench_compact(torch, sj, params, dev, gen, cap: int, args) -> dict:
         if err:
             raise AssertionError(f"cap {cap} R={R}: kernel != plain (max abs "
                                  f"err {err})")
-        ms = cuda_ms(torch, lambda: sj.firstdim_multiply(params, db, q_arr),
+        ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_arr),
                      args.iters)
         out_bytes = crt * z * M * R * 4
         moved = index_bytes + idx_j.numel() * 4 + q_arr.numel() * 4 + out_bytes
@@ -109,7 +246,7 @@ def bench_compact(torch, sj, params, dev, gen, cap: int, args) -> dict:
             for tl in sorted(forms):
                 key = (f"ntw{tl.ntw}_rb{tl.rb}_gpb{tl.gpb}_ns{tl.ns}"
                        f"_vec{tl.vec}_sw{tl.sw}")
-                sweep[key] = cuda_ms(torch, lambda: sj._scan_compact_launch(
+                sweep[key] = cuda_ms(lambda: sj._scan_compact_launch(
                     params, db, q_arr, tl), args.iters)
             r["sweep_ms"] = sweep
             r["tiling"] = default._asdict()
@@ -127,8 +264,13 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--columns", default="2,32")
-    ap.add_argument("--kernel", choices=("dense", "compact"), default="dense")
+    ap.add_argument("--kernel", default="dense",
+                    help="dense, compact, or ntt / fold / ntt,fold")
     args = ap.parse_args()
+    kernels = args.kernel.split(",")
+    if not (kernels in (["dense"], ["compact"])
+            or set(kernels) <= {"ntt", "fold"}):
+        ap.error(f"--kernel {args.kernel}")
     import torch
 
     if not torch.cuda.is_available():
@@ -148,6 +290,18 @@ def main() -> int:
     params = get_params_from_store(15, 32768)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    if set(kernels) <= {"ntt", "fold"}:
+        out = {"card": card, "root": os.path.abspath(args.root)}
+        for k in kernels:
+            stem = "ntt" if k == "ntt" else "fold_round"
+            bench = bench_ntt if k == "ntt" else bench_fold
+            out[k] = bench(torch, params, dev, gen, args)
+            out[k].update(kernel_report(_build, stem))
+        occ = _build.lib().get("sdk_fold_round_occupancy")
+        if "fold" in kernels and occ is not None:
+            out["fold"]["blocks_per_sm"] = occ()
+        print(json.dumps(out))
+        return 0
     if args.kernel == "compact":
         out = {"card": card, "root": os.path.abspath(args.root)}
         for state, cap in (("S1", 8), ("S2", 128)):
@@ -176,7 +330,7 @@ def main() -> int:
         err = int((got.long() - want.long()).abs().max())
         if err:
             raise AssertionError(f"R={R}: kernel != plain (max abs err {err})")
-        ms = cuda_ms(torch, lambda: sj.firstdim_multiply(params, db, q_arr),
+        ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_arr),
                      args.iters)
         moved = index_bytes + q_arr.numel() * 4 + crt * z * M * R * 4
         bnd = max(moved / HBM_BYTES_PER_S,
@@ -195,7 +349,7 @@ def main() -> int:
                                             mtw=mtw)
                         key = f"ntw{ntw}_w{warps}_mtw{tl.mtw}"
                         sweep[key] = cuda_ms(
-                            torch, lambda: sj._scan_launch(
+                            lambda: sj._scan_launch(
                                 params, db, q_arr, tl), args.iters)
             row["sweep_ms"] = sweep
             row["tiling"] = sj.scan_tiling(R, M, z, jw)._asdict()
