@@ -12,8 +12,9 @@ runtime dependency on it: it carries its own copy of the numpy host plane
 - ``ops.spiral``   server stages; matmul_mod (B, csrc/matmul_mod.cu), the
                    dense first-dim scan      (C, csrc/scan.cu), the compact
                    scan                      (I, csrc/scan_compact.cu), the
-                   expansion round's body    (E', csrc/expand_round.cu) and
-                   the sparse expansion schedule (J)
+                   batched expansion round   (E, csrc/expansion.cu) over
+                   the dense and the sparse (J) schedule, and the round's
+                   former elementwise body   (E', csrc/expand_round.cu)
 - ``ops.encode``   response rescale + pack  (D, csrc/encode.cu)
 - ``ops.server``   SpiralServerTorch engine
 - ``kv.ingest``    device ingest into the compact or dense index, migration

@@ -38,7 +38,8 @@ LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
                             "scan_compact": 0, "expand_round": 0,
                             "dp_dot_i8": 0, "dp_matmul_u32": 0,
                             "fold_round": 0, "pack": 0, "ingest": 0,
-                            "compact_to_dense": 0, "psum_mod": 0}
+                            "compact_to_dense": 0, "psum_mod": 0,
+                            "expansion": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,6 +75,10 @@ _SIGNATURES = {
     "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _P, _LL, _I,
                                                   _I, _I, _I, _P)),
     "sdk_psum_mod": ("psum_mod", (_P, _I, _LL, _LL, _U, _U, _I, _P, _P)),
+    "sdk_expansion": ("expansion", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
+                                    _P, _P, _P, _I, _I, _I, _I, _ULL, _U, _U,
+                                    _ULL, _I, _P)),
+    "sdk_expansion_occupancy": ("expansion", ()),
 }
 
 _lock = threading.Lock()

@@ -102,7 +102,7 @@ def _launch(params: Params, x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 def ntt_forward_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Forward NTT with exact int64 butterflies (x + w*y, x - w*y) mod q in
-    the reference's stage order."""
+    the reference's stage order, each stage in place on its two halves."""
     n = params.poly_len
     q = moduli_column(params, x.device, 2)            # (crt, 1, 1)
     w_all = tables(params, x.device)[:, 0].to(torch.int64) & 0xFFFFFFFF
@@ -110,18 +110,20 @@ def ntt_forward_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     lead = op.shape[:-1]
     for mm in range(params.poly_len_log2):
         m = 1 << mm
-        v = op.reshape(lead + (m, 2, n >> (mm + 1)))
+        v = op.view(lead + (m, 2, n >> (mm + 1)))
         w = w_all[:, m:2 * m].unsqueeze(-1)           # (crt, m, 1)
-        wy = v[..., 1, :] * w % q
-        xs = v[..., 0, :]
-        op = torch.stack([(xs + wy) % q, (xs - wy) % q], dim=-2
-                         ).reshape(lead + (n,))
+        xs, ys = v[..., 0, :], v[..., 1, :]
+        ys.mul_(w).remainder_(q)                      # w*y
+        t = xs + q - ys                               # x - w*y + q
+        xs.add_(ys).remainder_(q)
+        torch.remainder(t, q, out=ys)
     return op.to(torch.int32)
 
 
 def ntt_inverse_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Inverse NTT with exact int64 butterflies ((x + y)/2, (x - y)*w) mod q;
-    the table's inverse twiddles are pre-halved, so 1/n is carried."""
+    """Inverse NTT with exact int64 butterflies ((x + y)/2, (x - y)*w) mod q,
+    each stage in place on its two halves; the table's inverse twiddles are
+    pre-halved, so 1/n is carried."""
     n = params.poly_len
     q = moduli_column(params, x.device, 2)
     inv2 = (q + 1) // 2
@@ -130,11 +132,12 @@ def ntt_inverse_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     lead = op.shape[:-1]
     for mm in reversed(range(params.poly_len_log2)):
         h = 1 << mm
-        v = op.reshape(lead + (h, 2, n >> (mm + 1)))
+        v = op.view(lead + (h, 2, n >> (mm + 1)))
         w = w_all[:, h:2 * h].unsqueeze(-1)
         xs, ys = v[..., 0, :], v[..., 1, :]
-        op = torch.stack([(xs + ys) * inv2 % q, (xs - ys) % q * w % q],
-                         dim=-2).reshape(lead + (n,))
+        t = xs + q - ys                               # x - y + q < 2q
+        xs.add_(ys).mul_(inv2).remainder_(q)
+        torch.mul(t, w, out=ys).remainder_(q)
     return op.to(torch.int32)
 
 

@@ -53,23 +53,31 @@ def index_hbm_bytes(params: Params) -> int:
 def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
     """Estimated device bytes next to the index while an nq-query batch is
     in flight. The scan's query and output columns; every query's folding
-    keys and their negations; one query's expansion temporaries (expansion
-    runs one query at a time); and the batch's fold input, which is made for
-    all nq queries at once: the scan output regrouped per query, its inverse
-    NTT (int32 residues, three live copies with the regrouping), and the
-    CRT-composed int64 values with the compose's temporaries (five live
-    arrays of that size, the first round's output included). The fused fold
-    and pack kernels keep their digit polynomials in shared memory, so the
-    rounds add nothing."""
+    keys and their negations; the batched expansion, which runs all nq
+    queries at once: its two round buffers (a round's input and output, up
+    to 2^g int32 cts a query) and the batched regev_to_gsw's temporaries
+    (per GSW leaf: its inverse NTT and the CRT compose's five int64 rows,
+    the 2 t_conv digit planes with their stack, their reduction and
+    transform, and the key product with its interleaved copies); and the
+    batch's fold input, which is made for all nq queries at once: the scan
+    output regrouped per query, its inverse NTT (int32 residues, three live
+    copies with the regrouping), and the CRT-composed int64 values with the
+    compose's temporaries (five live arrays of that size, the first round's
+    output included). The fused fold and pack kernels keep their digit
+    polynomials in shared memory, so the rounds add nothing."""
     crt, z = params.crt_count, params.poly_len
     dim0 = 1 << params.db_dim_1
     num_per = 1 << params.db_dim_2
     m = params.instances * params.n * params.n * num_per
     scan = crt * z * (m + dim0) * 2 * nq * 4
     keys = nq * params.db_dim_2 * 2 * 2 * params.t_gsw * crt * z * 4 * 2
-    expand = (1 << params.g()) * 2 * crt * z * 4 * 8
+    expand = 2 * nq * (1 << params.g()) * 2 * crt * z * 4
+    tc = params.t_conv
+    gsw = nq * params.t_gsw * params.db_dim_2 * z * (
+        2 * crt * 4 + 5 * 2 * 8 + 2 * 2 * tc * 8 + 2 * tc * crt * 16
+        + 5 * 2 * crt * 4)
     fold = nq * m * 2 * z * (3 * crt * 4 + 5 * 8)
-    return scan + keys + expand + fold
+    return scan + keys + expand + gsw + fold
 
 
 def pp_to_device(params: Params, pp: PublicParameters, device) -> dict:
@@ -102,6 +110,8 @@ class SpiralServerTorch:
         self._sharded = None if mesh is None else ShardedSpiralScan(params, mesh)
         self.device = mesh.home if mesh is not None else torch.device(device)
         self.plan = sj.ExpansionPlan(params, self.device)
+        self._schedule = sj.dense_schedule(
+            params, params.t_gsw * params.db_dim_2, self.device)
         g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
         self.gadget_ntt = u32_bits(g, self.device)
         self.encode_plan = ResponseEncodePlan(params, self.device)
@@ -168,42 +178,62 @@ class SpiralServerTorch:
 
     # -- stages --
 
-    def expand_query(self, pp_dev: dict, query: Query):
-        """Query ct -> (scan columns (crt, z, dim0, 2), folding keys
-        (db_dim_2, 2, 2*t_gsw, crt, z))."""
+    def expand_queries(self, pp_devs: list, queries: list,
+                       columns: int | None = None):
+        """Expand a batch of queries, each with its own keys: one launch of
+        kernel E a round for the whole batch (dense, or the sparse schedule
+        once a populated set is installed) and one regev_to_gsw. Returns
+        the scan columns (crt, z, dim0, 2 * columns), column 2*i + r row r
+        of query i, the columns of queries past the batch (up to
+        ``columns``, default the batch) copies of query 0's; and the
+        folding keys (NQ, db_dim_2, 2, 2*t_gsw, crt, z)."""
         params = self.params
-        ct = torch.from_numpy(query.ct.astype(np.int64)).to(self.device)
-        ct0 = sj.to_ntt(params, ct)                       # (2, 1, crt, n)
+        nq = len(queries)
+        columns = columns or nq
+        crt, n = params.crt_count, params.poly_len
+        ct = torch.from_numpy(np.stack([q.ct for q in queries])
+                              .astype(np.int64)).to(self.device)
+        ct0 = sj.to_ntt(params, ct)                     # (NQ, 2, 1, crt, n)
+        keys = sj.ExpansionKeys(params, pp_devs)
         right = params.t_gsw * params.db_dim_2
         dim0 = 1 << params.db_dim_1
-        if self._splan is None:
-            cts = sj.coefficient_expansion(params, self.plan, ct0,
-                                           pp_dev["v_exp_left"],
-                                           pp_dev["v_exp_right"], right)
+        splan = self._splan
+        leaves = sj.expand_batch(params, self.plan, self._schedule if splan
+                                 is None else splan.schedule, ct0, keys)
+        if splan is None:
             stride = 2 if params.db_dim_2 > 0 else 1
-            v_reg = cts[0::stride][:dim0]
-            v_gsw = cts[1::2][:right]
-            q_arr = v_reg[:, :, 0].permute(2, 3, 0, 1).contiguous()
+            v_reg = leaves[:, 0::stride][:, :dim0]
+            v_gsw = leaves[:, 1::2][:, :right]
+            cols = torch.empty((crt, n, dim0, columns, 2), dtype=torch.int32,
+                               device=self.device)
+            cols[:, :, :, :nq] = v_reg[:, :, :, 0].permute(3, 4, 1, 0, 2)
         else:
             # the Regev leaves land at their dim0 columns of a zero query;
             # the unpopulated columns meet only zero DB rows
             # (server_jax.py:279-302)
-            splan = self._splan
-            leaves = sj.coefficient_expansion_sparse(
-                params, self.plan, splan, ct0, pp_dev["v_exp_left"],
-                pp_dev["v_exp_right"])
-            v_reg = leaves.index_select(0, splan.even_leaf_pos)
-            q_arr = torch.zeros((params.crt_count, params.poly_len, dim0, 2),
-                                dtype=torch.int32, device=self.device)
-            q_arr[:, :, splan.even_dim0_idx] = v_reg[:, :, 0].permute(2, 3, 0, 1)
-            v_gsw = leaves.index_select(0, splan.odd_leaf_pos)
+            v_reg = leaves.index_select(1, splan.even_leaf_pos)
+            v_gsw = leaves.index_select(1, splan.odd_leaf_pos)
+            cols = torch.zeros((crt, n, dim0, columns, 2), dtype=torch.int32,
+                               device=self.device)
+            cols[:, :, splan.even_dim0_idx, :nq] = v_reg[:, :, :, 0].permute(
+                3, 4, 1, 0, 2)
+        if columns > nq:
+            cols[:, :, :, nq:] = cols[:, :, :, :1]
         if params.db_dim_2 > 0:
-            v_folding = sj.regev_to_gsw(params, v_gsw, pp_dev["v_conversion"])
+            # every query's keyed (w, w') conversion key, stacked
+            v_conv = tuple(torch.stack(k) for k in zip(
+                *(pp["v_conversion"] for pp in pp_devs)))
+            v_folding = sj.regev_to_gsw(params, v_gsw, v_conv)
         else:
-            v_folding = torch.zeros((0, 2, 2 * params.t_gsw, params.crt_count,
-                                     params.poly_len), dtype=torch.int32,
-                                    device=self.device)
-        return q_arr, v_folding
+            v_folding = torch.zeros((nq, 0, 2, 2 * params.t_gsw, crt, n),
+                                    dtype=torch.int32, device=self.device)
+        return cols.reshape(crt, n, dim0, 2 * columns), v_folding
+
+    def expand_query(self, pp_dev: dict, query: Query):
+        """Query ct -> (scan columns (crt, z, dim0, 2), folding keys
+        (db_dim_2, 2, 2*t_gsw, crt, z)): expand_queries of one query."""
+        q_arr, v_folding = self.expand_queries([pp_dev], [query])
+        return q_arr, v_folding[0]
 
     def _pack_encode(self, folded: torch.Tensor, v_packings: list):
         """Folded cts (NQ, inst, trials, 2, 1, z) and each query's packing
@@ -215,7 +245,7 @@ class SpiralServerTorch:
                             for i in range(packed.shape[0])])
 
     def _dispatch(self, pps: list, queries: list) -> torch.Tensor:
-        """Enqueue a batch: per-query expansion, ONE scan with R = 2*NQ
+        """Enqueue a batch: one batched expansion, ONE scan with R = 2*NQ
         columns (column 2*i + r is row r of query i), one fold and one pack
         for the whole batch, encode per query. NQ is padded to a power of
         two with copies of query 0's columns (server_jax.py:644-648), so R
@@ -224,13 +254,8 @@ class SpiralServerTorch:
         run per shard (ShardedSpiralScan.scan_fold, server_jax.py:710-727).
         Returns (NQ, words) int32."""
         n_real = len(queries)
-        expanded = [self.expand_query(pp, q) for pp, q in zip(pps, queries)]
-        cols = [q_arr for q_arr, _ in expanded]
         pad_n = 1 << (n_real - 1).bit_length()
-        cols += [cols[0]] * (pad_n - n_real)
-        q_all = torch.stack(cols, dim=-2)                 # (crt, z, dim0, NQ, 2)
-        q_all = q_all.reshape(q_all.shape[:3] + (2 * pad_n,))
-        v_foldings = torch.stack([v for _, v in expanded])
+        q_all, v_foldings = self.expand_queries(pps, queries, pad_n)
         v_neg = sj.get_v_folding_neg(self.params, v_foldings, self.gadget_ntt)
         if self._sharded is not None:
             folded = self._sharded.scan_fold(self.db, q_all, n_real,

@@ -3,8 +3,12 @@
 Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
 
   expansion : automorphism-based coefficient expansion (dense, and the
-              compacted sparse schedule) + Regev->GSW; the elementwise body
-              of a round is kernel E' (csrc/expand_round.cu)
+              compacted sparse schedule) + Regev->GSW; one launch of kernel
+              E (csrc/expansion.cu) per round for a whole batch, over a
+              work list per round that every query shares
+              (dense_schedule, sparse_schedule); expansion_round_plain,
+              composed of the plain A', E' (csrc/expand_round.cu), A and B,
+              is its plain version
   scan      : encrypted-query x DB product over the dense index (kernel C,
               csrc/scan.cu) or the compact index (kernel I,
               csrc/scan_compact.cu)
@@ -37,7 +41,7 @@ from ..params import Params
 
 from .. import _build
 from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
-                     reduce_channels, u32_bits)
+                     reduce_channels, shoup_companion_arr, u32_bits)
 from .ntt import (ntt_forward, ntt_forward_plain, ntt_inverse,
                   ntt_inverse_plain)
 from .ntt import tables as ntt_tables
@@ -547,20 +551,60 @@ def epilogue_constants(q: int) -> list[int]:
 # coefficient expansion (reference server.rs:19-121)
 # ---------------------------------------------------------------------------
 
+_NTT_PERMS: dict = {}
+
+
+def ntt_automorph_perms(params: Params) -> np.ndarray:
+    """(rounds, crt, n) int32: the permutation P_r of NTT slots with
+    NTT(a(x^t))[k] = NTT(a)[P_r[k]] mod q_c for t = n / 2^r + 1.
+
+    A negacyclic NTT evaluates a at the roots psi_k = NTT(x)[k] of x^n + 1,
+    and a(x^t) at psi_k is a at psi_k^t, itself such a root (t odd): the
+    automorphism of a ring element is a gather of its NTT slots. Q - v is
+    -v mod q_c, so the reference's negation (0 -> Q) is the same map. Cached
+    per (n, moduli)."""
+    n, moduli = params.poly_len, tuple(params.moduli)
+    if (n, moduli) in _NTT_PERMS:
+        return _NTT_PERMS[(n, moduli)]
+    mono = np.zeros((1, 1, n), dtype=np.uint64)
+    mono[0, 0, 1] = 1
+    psi = hpoly.to_ntt(params, mono)[0, 0]            # (crt, n)
+    out = np.empty((params.poly_len_log2, len(moduli), n), dtype=np.int32)
+    for c, q in enumerate(moduli):
+        vals = [int(v) for v in psi[c]]
+        slot = {v: k for k, v in enumerate(vals)}
+        for r in range(params.poly_len_log2):
+            t = (n >> r) + 1
+            out[r, c] = [slot[pow(v, t, q)] for v in vals]
+    _NTT_PERMS[(n, moduli)] = out
+    return out
+
+
 class ExpansionPlan:
-    """Static data for one Params on one device: automorphism tables per
-    round (int32 gather permutation, bool negation mask) and the NTT'd
-    -x^(2048-2^r) scalars."""
+    """Static data for one Params on one device, a row a round: the NTT'd
+    -x^(2048-2^r) scalars (neg1) and their Shoup companions, the
+    automorphism tables (``perm_all`` int32 gather permutations,
+    ``negm_all`` bool negation masks, one byte a word as kernels E and E'
+    read them) and the NTT-slot permutation of each automorphism
+    (ntt_automorph_perms)."""
 
     def __init__(self, params: Params, device):
         self.params = params
-        self.neg1 = [u32_bits(hpoly.to_ntt(params, p.reshape(1, 1, -1))[0, 0],
-                              device) for p in params.get_v_neg1_raw()]
-        self.auto = []
-        for r in range(params.poly_len_log2):
-            perm, neg = automorph_tables(params, (params.poly_len >> r) + 1)
-            self.auto.append((torch.from_numpy(perm.astype(np.int32)).to(device),
-                              torch.from_numpy(neg).to(device)))
+        neg1 = np.stack([hpoly.to_ntt(params, p.reshape(1, 1, -1))[0, 0]
+                         for p in params.get_v_neg1_raw()])   # (L, crt, n)
+        perms, negs = zip(*(automorph_tables(params, (params.poly_len >> r) + 1)
+                            for r in range(params.poly_len_log2)))
+        self.neg1 = u32_bits(neg1, device)
+        self.neg1_shoup = u32_bits(shoup_companion_arr(params, neg1), device)
+        self.perm_all = torch.from_numpy(np.stack(perms).astype(np.int32)
+                                         ).to(device)
+        self.negm_all = torch.from_numpy(np.stack(negs).astype(bool)).to(device)
+        self.perm_ntt = torch.from_numpy(ntt_automorph_perms(params)).to(device)
+
+    def auto(self, r: int) -> tuple:
+        """Round r's automorphism tables (perm, neg), as expand_round takes
+        them."""
+        return self.perm_all[r], self.negm_all[r]
 
 
 def expand_round_plain(params: Params, x: torch.Tensor, t_tables,
@@ -610,62 +654,6 @@ def expand_round(params: Params, x: torch.Tensor, t_tables,
     if x.device.type == "cpu":
         return expand_round_plain(params, x, t_tables, t_exp)
     raise ValueError(f"unsupported device {x.device}")
-
-
-def _expansion_round_update(params: Params, cts: torch.Tensor, w, t_tables,
-                            mask: np.ndarray | None = None) -> torch.Tensor:
-    """One expansion butterfly on the cts (B, 2, 1, crt, n) whose mask entry
-    is True (all when mask is None); the others keep their value. Only
-    selected cts are computed: inverse NTT (A'), E', one forward NTT of the
-    digits and row 1 (A), the key product (B), two additions."""
-    sel = None if mask is None or mask.all() else torch.from_numpy(
-        np.flatnonzero(mask)).to(cts.device)
-    sub = cts if sel is None else cts.index_select(0, sel)
-    t_exp = (w[0] if isinstance(w, tuple) else w).shape[1]
-    B = sub.shape[0]
-    fwd = ntt_forward(params, expand_round(params, ntt_inverse(params, sub),
-                                           t_tables, t_exp))
-    ginv_ntt = fwd[:B * t_exp].view(B, t_exp, 1, *fwd.shape[1:])
-    auto1 = fwd[B * t_exp:].view(B, 1, 1, *fwd.shape[1:])
-    res = add_mod(params, sub, matmul_mod(params, w, ginv_ntt))
-    res = torch.cat([res[:, 0:1], add_mod(params, res[:, 1:2], auto1)], dim=1)
-    if sel is None:
-        return res
-    return cts.index_copy(0, sel, res)
-
-
-def coefficient_expansion(params: Params, plan: ExpansionPlan,
-                          ct0: torch.Tensor, v_w_left, v_w_right,
-                          max_bits_to_gen_right: int) -> torch.Tensor:
-    """ct0: (2, 1, crt, n). Returns (2^g, 2, 1, crt, n)."""
-    g = params.g()
-    stop_round = params.stop_round() if params.db_dim_2 > 0 else 0
-    cts = ct0[None]
-    for r in range(g):
-        t_tables = plan.auto[r]
-        cts = torch.cat([cts, scalar_mulmod(params, plan.neg1[r], cts)])
-        num = cts.shape[0]
-
-        # static skip masks (reference server.rs:33-44)
-        mask = np.ones(num, dtype=bool)
-        if stop_round > 0 and r > stop_round:
-            mask[1::2] = False
-        if stop_round > 0 and r == stop_round:
-            mask[1::2] = np.arange(num // 2) < max_bits_to_gen_right
-
-        if r == 0:
-            # both children use the right key (i%2==0 requires r != 0)
-            cts = _expansion_round_update(params, cts, v_w_right[0], t_tables,
-                                          mask)
-        else:
-            evens = _expansion_round_update(params, cts[0::2], v_w_left[r],
-                                            t_tables, mask[0::2])
-            odds = cts[1::2]
-            if mask[1::2].any():   # v_w_right holds stop_round + 1 keys
-                odds = _expansion_round_update(params, odds, v_w_right[r],
-                                               t_tables, mask[1::2])
-            cts = torch.stack([evens, odds], dim=1).reshape(cts.shape)
-    return cts
 
 
 class SparseExpansionPlan:
@@ -751,45 +739,306 @@ class SparseExpansionPlan:
         self.odd_leaf_pos = idx(leaf_pos[2 * i + 1]
                                 for i in range(max_bits_to_gen_right)
                                 if params.db_dim_2 > 0)
+        self.schedule = sparse_schedule(self, device)
 
 
-def coefficient_expansion_sparse(params: Params, plan: ExpansionPlan,
-                                 splan: SparseExpansionPlan, ct0: torch.Tensor,
-                                 v_w_left, v_w_right) -> torch.Tensor:
-    """Compacted expansion. ct0: (2, 1, crt, n). Returns the final live
-    entries (len(live), 2, 1, crt, n); splan.even_leaf_pos and
-    splan.odd_leaf_pos index the Regev and GSW leaves in it."""
-    cts = ct0[None]
-    for r, rd in enumerate(splan.rounds):
-        t_tables = plan.auto[r]
-        base = cts.index_select(0, rd["parent_pos"])
-        neg = scalar_mulmod(params, plan.neg1[r], base)
-        base = torch.where(rd["neg_mask"].reshape(-1, 1, 1, 1, 1), neg, base)
-        pieces = []
-        if rd["even_sel"].numel():
-            pieces.append(_expansion_round_update(
-                params, base.index_select(0, rd["even_sel"]), v_w_left[r],
-                t_tables))
-        if rd["odd_sel"].numel():
-            pieces.append(_expansion_round_update(
-                params, base.index_select(0, rd["odd_sel"]), v_w_right[r],
-                t_tables))
-        pieces.append(base)
-        cts = torch.cat(pieces).index_select(0, rd["src_sel"])
+# ---------------------------------------------------------------------------
+# the batched expansion: one round for every query of a batch, kernel E
+# (csrc/expansion.cu)
+# ---------------------------------------------------------------------------
+
+LEFT, RIGHT, CARRIED = 0, 1, 2      # an entry's key side in a round
+
+
+class ExpansionRound(NamedTuple):
+    """One round of an expansion schedule, shared by every query of a
+    batch: ``items`` int32 (n_items, 4) rows (output position, parent
+    position in the previous round, negate flag, side: LEFT, RIGHT or
+    CARRIED), one per output entry, the updated entries first; n_in and
+    n_out entries before and after the round; n_left / n_right entries
+    updated with each key."""
+
+    items: torch.Tensor
+    n_in: int
+    n_out: int
+    n_left: int
+    n_right: int
+
+    @property
+    def n_update(self) -> int:
+        return self.n_left + self.n_right
+
+
+def _round_items(out_parent_neg_side: list, n_in: int, device) -> ExpansionRound:
+    rows = sorted(out_parent_neg_side, key=lambda t: (t[3] == CARRIED, t[0]))
+    arr = np.asarray(rows, dtype=np.int32).reshape(-1, 4)
+    sides = arr[:, 3]
+    return ExpansionRound(torch.from_numpy(arr).to(device), n_in, len(rows),
+                          int((sides == LEFT).sum()),
+                          int((sides == RIGHT).sum()))
+
+
+def dense_schedule(params: Params, max_bits_to_gen_right: int,
+                   device="cpu") -> list[ExpansionRound]:
+    """The rounds of the dense expansion (spiral_jax.coefficient_expansion)
+    as work lists: entry i of round r (2^(r+1) entries) has parent i mod
+    2^r, negated when i >= 2^r; the right key at r = 0 and for odd i, the
+    left key for even i; carried where the stop-round masks say so
+    (reference server.rs:33-44)."""
+    stop_round = params.stop_round() if params.db_dim_2 > 0 else 0
+    rounds = []
+    for r in range(params.g()):
+        half = 1 << r
+        rows = []
+        for i in range(2 * half):
+            side = RIGHT if r == 0 or i % 2 else LEFT
+            if stop_round > 0 and i % 2 and (
+                    r > stop_round or (r == stop_round
+                                       and i // 2 >= max_bits_to_gen_right)):
+                side = CARRIED
+            rows.append((i, i % half, int(i >= half), side))
+        rounds.append(_round_items(rows, half, device))
+    return rounds
+
+
+def sparse_schedule(splan: SparseExpansionPlan,
+                    device="cpu") -> list[ExpansionRound]:
+    """The rounds of the compacted expansion (SparseExpansionPlan) as work
+    lists: entry k of round r has parent parent_pos[k], negated where
+    neg_mask[k]; its side from src_sel (into [even updates, odd updates,
+    carried bases])."""
+    rounds, n_in = [], 1
+    for rd in splan.rounds:
+        parent = rd["parent_pos"].tolist()
+        neg = rd["neg_mask"].tolist()
+        n_ev = rd["even_sel"].numel()
+        n_upd = n_ev + rd["odd_sel"].numel()
+        rows = [(k, parent[k], int(neg[k]),
+                 LEFT if s < n_ev else RIGHT if s < n_upd else CARRIED)
+                for k, s in enumerate(rd["src_sel"].tolist())]
+        rounds.append(_round_items(rows, n_in, device))
+        n_in = len(rows)
+    return rounds
+
+
+class ExpansionKeys:
+    """Every query's expansion keys for a batch: per query the pp dict's
+    lists of keyed (w, w') (2, t_exp, crt, n) matrices, left and right.
+    Kernel E reads them through a device table of pointers, (rounds, NQ,
+    side, w | w'), made once a batch from a row of pointers cached in each
+    query's key dict."""
+
+    def __init__(self, params: Params, pp_devs: list):
+        self.params = params
+        self.left = [pp["v_exp_left"] for pp in pp_devs]
+        self.right = [pp["v_exp_right"] for pp in pp_devs]
+        self._pp_devs = pp_devs
+        self._table = None
+
+    def __len__(self) -> int:
+        return len(self.left)
+
+    def round_keys(self, r: int, side: int) -> list:
+        """Each query's key of round r on one side (plain versions)."""
+        keys = self.left if side == LEFT else self.right
+        if any(r >= len(k) for k in keys):
+            raise ValueError(f"no {('left', 'right')[side]} expansion key for "
+                             f"round {r}")
+        return [k[r] for k in keys]
+
+    @staticmethod
+    def _pointer_row(params: Params, pp: dict) -> np.ndarray:
+        """(rounds, 2, 2) int64 pointers of one query's keys (0 where a side
+        has no key), checked once: keyed int32 (2, t_exp, 2, n), contiguous,
+        16-byte aligned."""
+        row = pp.get("_expansion_key_ptrs")
+        if row is not None:
+            return row
+        row = np.zeros((params.g(), 2, 2), dtype=np.int64)
+        for side, (name, t_exp) in enumerate(
+                (("v_exp_left", params.t_exp_left),
+                 ("v_exp_right", params.t_exp_right))):
+            for r, key in enumerate(pp[name][:params.g()]):
+                if not isinstance(key, tuple):
+                    raise ValueError("kernel E takes keyed (w, w') expansion "
+                                     "keys")
+                for h, k in enumerate(key):
+                    if (k.dtype != torch.int32 or not k.is_contiguous()
+                            or k.data_ptr() % 16 or tuple(k.shape) != (
+                                2, t_exp, params.crt_count, params.poly_len)):
+                        raise ValueError(f"expansion key {name}[{r}]: "
+                                         f"{k.dtype} {tuple(k.shape)}")
+                    row[r, side, h] = k.data_ptr()
+        pp["_expansion_key_ptrs"] = row
+        return row
+
+    def table(self, device) -> torch.Tensor:
+        """int64 (rounds, NQ, 2, 2) pointer table on ``device``."""
+        if self._table is None:
+            rows = np.stack([self._pointer_row(self.params, pp)
+                             for pp in self._pp_devs], axis=1)
+            self._table = torch.from_numpy(rows).to(device)
+        return self._table
+
+
+def _update_plain(params: Params, plan: ExpansionPlan, r: int,
+                  base: torch.Tensor, keys: list) -> torch.Tensor:
+    """The expansion butterfly (spiral_jax._expansion_round_update) on base
+    (NQ, B, 2, 1, crt, n), query i with its keyed key keys[i], from the
+    plain versions of A', E', A and B only."""
+    nq, B = base.shape[:2]
+    w = torch.stack([w for w, _ in keys])
+    t_exp = w.shape[2]
+    x = ntt_inverse_plain(params, base.reshape((nq * B,) + base.shape[2:]))
+    fwd = ntt_forward_plain(params, expand_round_plain(params, x, plan.auto(r),
+                                                       t_exp))
+    ginv = fwd[:nq * B * t_exp].reshape(nq, B, t_exp, 1, *fwd.shape[1:])
+    auto1 = fwd[nq * B * t_exp:].reshape(nq, B, 1, 1, *fwd.shape[1:])
+    res = add_mod(params, base, matmul_mod_plain(params, w, ginv))
+    return torch.cat([res[:, :, 0:1], add_mod(params, res[:, :, 1:2], auto1)],
+                     dim=2)
+
+
+def expansion_round_plain(params: Params, plan: ExpansionPlan, r: int,
+                          cts: torch.Tensor, rnd: ExpansionRound,
+                          keys: ExpansionKeys) -> torch.Tensor:
+    """One expansion round for every query of a batch, in plain PyTorch (the
+    plain versions of A', E', A and B, never a kernel). cts: int32 (NQ,
+    n_in, 2, 1, crt, n) NTT cts of the previous round; returns (NQ, n_out,
+    2, 1, crt, n): entry k = its parent, times plan.neg1[r] where flagged,
+    then updated with the query's left or right key of round r, or
+    carried."""
+    items = rnd.items.to(device=cts.device, dtype=torch.int64)
+    base = cts.index_select(1, items[:, 1])
+    neg = items[:, 2].bool().reshape(1, -1, 1, 1, 1, 1)
+    base = torch.where(neg, mul_mod(params, plan.neg1[r], base), base)
+    res = base.clone()
+    for side in (LEFT, RIGHT):
+        sel = torch.nonzero(items[:, 3] == side).flatten()
+        if sel.numel():
+            res[:, sel] = _update_plain(params, plan, r,
+                                        base.index_select(1, sel),
+                                        keys.round_keys(r, side))
+    out = torch.empty((cts.shape[0], rnd.n_out) + cts.shape[2:],
+                      dtype=cts.dtype, device=cts.device)
+    out[:, items[:, 0]] = res
+    return out
+
+
+class ExpansionTiling(NamedTuple):
+    """How kernel E cuts a round (see csrc/expansion.cu): an updated
+    entry's key digits split over a thread block cluster of ``cluster``
+    256-thread blocks (two 128-thread transform groups, one a CRT
+    channel)."""
+
+    cluster: int
+
+
+@functools.lru_cache(maxsize=None)
+def expansion_tiling(updates: int, t_exp: int,
+                     cluster: int | None = None) -> ExpansionTiling:
+    """Kernel E's tiling for a round of ``updates`` updated entries over the
+    batch whose narrower key has t_exp digits: one block an entry from 256
+    entries up (a wave of the card at two blocks an SM), else a cluster of
+    2 blocks from 64 up and of 4 below, as F splits its slots
+    (fold_tiling), never more blocks than digits."""
+    if cluster is None:
+        cluster = 1 if updates >= 256 else 2 if updates >= 64 else 4
+        while cluster > t_exp:
+            cluster //= 2
+    if cluster not in (1, 2, 4):
+        raise ValueError(f"expansion tiling: cluster {cluster}")
+    return ExpansionTiling(cluster)
+
+
+def expansion_digit_split(t_exp: int, cluster: int) -> list[range]:
+    """The key digits k of an updated entry that each block of a cluster
+    takes (csrc/expansion.cu d0, d1)."""
+    return [range(rank * t_exp // cluster, (rank + 1) * t_exp // cluster)
+            for rank in range(cluster)]
+
+
+def _expansion_launch(params: Params, plan: ExpansionPlan, r: int,
+                      cts: torch.Tensor, rnd: ExpansionRound,
+                      keys: ExpansionKeys,
+                      tiling: ExpansionTiling | None = None) -> torch.Tensor:
+    """Kernel E (csrc/expansion.cu) on one round of every query of the
+    batch. ``tiling`` overrides :func:`expansion_tiling` (sweeps, tests)."""
+    n = params.poly_len
+    nq = cts.shape[0]
+    if (cts.dtype != torch.int32 or tuple(cts.shape[1:]) != (
+            rnd.n_in, 2, 1, 2, n) or params.crt_count != 2
+            or params.poly_len_log2 != 11 or len(keys) != nq
+            or not 1 <= params.t_exp_left <= 64
+            or not 1 <= params.t_exp_right <= 64):
+        raise ValueError(f"expansion: cts {cts.dtype} {tuple(cts.shape)} for "
+                         f"a round of {rnd.n_in} -> {rnd.n_out} entries, "
+                         f"{len(keys)} key sets")
+    if rnd.n_right and any(r >= len(k) for k in keys.right):
+        raise ValueError(f"no right expansion key for round {r}")
+    cts = cts.contiguous()
+    if cts.data_ptr() % 16:                # 16-byte loads of the parents
+        cts = cts.clone()
+    table = keys.table(cts.device)
+    tb = ntt_tables(params, cts.device)
+    _build.require_cuda(cts, rnd.items, table, tb, plan.neg1)
+    out = torch.empty((nq, rnd.n_out, 2, 1, 2, n), dtype=torch.int32,
+                      device=cts.device)
+    t_min = min(params.t_exp_left if rnd.n_left else 64,
+                params.t_exp_right if rnd.n_right else 64)
+    tl = tiling or expansion_tiling(nq * rnd.n_update, t_min)
+    q0, q1 = params.moduli
+    _build.launch("expansion", "sdk_expansion", cts.device, cts.data_ptr(),
+                  out.data_ptr(), rnd.items.data_ptr(), rnd.n_out, rnd.n_in,
+                  nq, table.data_ptr() + 8 * table[0].numel() * r,
+                  plan.neg1[r].data_ptr(), plan.neg1_shoup[r].data_ptr(),
+                  plan.perm_all[r].data_ptr(), plan.negm_all[r].data_ptr(),
+                  plan.perm_ntt[r].data_ptr(), tb.data_ptr(),
+                  params.t_exp_left, _get_bits_per(params, params.t_exp_left),
+                  params.t_exp_right, _get_bits_per(params, params.t_exp_right),
+                  params.modulus, q0, q1, params.inv_q0_mod_q1, tl.cluster,
+                  _build.stream_of(cts))
+    return out
+
+
+def expansion_round(params: Params, plan: ExpansionPlan, r: int,
+                    cts: torch.Tensor, rnd: ExpansionRound,
+                    keys: ExpansionKeys) -> torch.Tensor:
+    """Kernel E on a CUDA tensor, expansion_round_plain (same contract) on a
+    CPU tensor."""
+    if cts.device.type == "cuda":
+        return _expansion_launch(params, plan, r, cts, rnd, keys)
+    if cts.device.type == "cpu":
+        return expansion_round_plain(params, plan, r, cts, rnd, keys)
+    raise ValueError(f"unsupported device {cts.device}")
+
+
+def expand_batch(params: Params, plan: ExpansionPlan,
+                 schedule: list[ExpansionRound], ct0: torch.Tensor,
+                 keys: ExpansionKeys) -> torch.Tensor:
+    """ct0: (NQ, 2, 1, crt, n) NTT query cts. Runs every round of the
+    schedule for the whole batch, one expansion_round a round; returns the
+    last round's entries (NQ, n_out, 2, 1, crt, n)."""
+    cts = ct0[:, None]
+    for r, rnd in enumerate(schedule):
+        cts = expansion_round(params, plan, r, cts, rnd, keys)
     return cts
 
 
 def regev_to_gsw(params: Params, v_inp: torch.Tensor, v_conv) -> torch.Tensor:
-    """v_inp: (num_gsw * t_gsw, 2, 1, crt, n) NTT Regev cts; v_conv:
-    (2, 2*t_conv, crt, n) key. Returns (num_gsw, 2, 2*t_gsw, crt, n)."""
-    raw = from_ntt(params, v_inp)                           # (N, 2, 1, n)
+    """v_inp: (..., num_gsw * t_gsw, 2, 1, crt, n) NTT Regev cts; v_conv:
+    the (..., 2, 2*t_conv, crt, n) key (or its keyed (w, w') pair), its
+    leading dims those of v_inp. Returns (..., num_gsw, 2, 2*t_gsw, crt, n):
+    one from_ntt, one to_ntt and one key product for a whole batch."""
+    lead = v_inp.shape[:-5]
+    raw = from_ntt(params, v_inp)                      # (..., N, 2, 1, n)
     ginv = gadget_digits(params, raw, 2 * params.t_conv, 2)
-    conv = matmul_mod(params, v_conv, to_ntt(params, ginv))  # (N, 2, 1, crt, n)
+    conv = matmul_mod(params, v_conv, to_ntt(params, ginv))  # (.., N, 2, 1, crt, n)
     # interleave columns: ct[:, 2j] = conv_j, ct[:, 2j+1] = v_inp_j
-    both = torch.stack([conv, v_inp], dim=1).reshape(
-        params.db_dim_2, params.t_gsw * 2, 2, params.crt_count,
-        params.poly_len)
-    return both.transpose(1, 2).contiguous()
+    both = torch.stack([conv, v_inp], dim=-5).reshape(
+        lead + (params.db_dim_2, params.t_gsw * 2, 2, params.crt_count,
+                params.poly_len))
+    return both.transpose(-4, -3).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -165,34 +165,99 @@ def _session(pj, pt, seed: int):
     return c, pp
 
 
-def test_sparse_expansion_matches_jax_and_dense():
-    """The engine's sparse expand stage (coefficient_expansion_sparse, the
-    leaf scatter, regev_to_gsw on the odd leaves) equals the JAX engine's
+# the populated set test_sparse_expansion_matches_jax_and_dense has always
+# used, and one with column 0 and the last of the same JAX plan signature
+# (one compiled sparse program for both)
+POPS = ({1, 2, 6}, {0, 3, 7})
+
+
+@pytest.fixture(scope="module")
+def sparse_batch():
+    """Three EXP_TINY sessions with their own keys and one query each (the
+    first as test_sparse_expansion_matches_jax_and_dense has always made
+    it), and the JAX engine's sparse expand_query of each under both
+    populated sets: one traced JAX sparse expansion for the module."""
+    pj, pt = both(EXP_TINY)
+    sessions = [_session(pj, pt, seed) for seed in (0x11, 0x31, 0x41)]
+    queries = [sessions[0][0].generate_query(5, noise_rng=RngJ(b"\x14" * 32),
+                                             query_seed=b"\x15" * 32)]
+    queries += [c.generate_query(2 * i + 1, noise_rng=RngJ(bytes([0x54 + i]) * 32),
+                                 query_seed=bytes([0x64 + i]) * 32)
+                for i, (c, _) in enumerate(sessions[1:])]
+    srv_j = SpiralServerJax(pj)
+    jax = {}
+    for pop in POPS:
+        srv_j.set_populated_dim0(pop)
+        jax[frozenset(pop)] = [
+            tuple(np.asarray(x).astype(np.int32)
+                  for x in srv_j.expand_query(pp_to_device(pj, pp), q))
+            for (_, pp), q in zip(sessions, queries)]
+    return {"pp": [convert.pp_from_jax(pp_to_device(pj, pp))
+                   for _, pp in sessions],
+            "queries": [Query.deserialize(pt, q.serialize(pj))
+                        for q in queries], "jax": jax}
+
+
+def test_sparse_expansion_matches_jax_and_dense(sparse_batch):
+    """The engine's sparse expand stage (the sparse schedule, the leaf
+    scatter, regev_to_gsw on the odd leaves) equals the JAX engine's
     and the port's dense expansion on the populated columns
     (tests/test_sparse_expansion.py:43)."""
-    pj, pt = both(EXP_TINY)
-    c, pp = _session(pj, pt, 0x11)
-    q = c.generate_query(5, noise_rng=RngJ(b"\x14" * 32),
-                         query_seed=b"\x15" * 32)
-    pop = {1, 2, 6}
-    srv_j = SpiralServerJax(pj)
-    srv_j.set_populated_dim0(pop)
-    q_jax, vf_jax = srv_j.expand_query(pp_to_device(pj, pp), q)
+    pt = params_t.params_from_json(EXP_TINY)
+    pop = POPS[0]
+    q_jax, vf_jax = sparse_batch["jax"][frozenset(pop)][0]
     srv = SpiralServerTorch(pt, "cpu")
-    pp_t = convert.pp_from_jax(pp_to_device(pj, pp))
-    query = Query.deserialize(pt, q.serialize(pj))
+    pp_t, query = sparse_batch["pp"][0], sparse_batch["queries"][0]
     q_dense, vf_dense = srv.expand_query(pp_t, query)
     srv.set_populated_dim0(pop)
     assert srv._splan is not None
     q_sparse, vf_sparse = srv.expand_query(pp_t, query)
-    np.testing.assert_array_equal(q_sparse.numpy(),
-                                  np.asarray(q_jax).astype(np.int32))
-    np.testing.assert_array_equal(vf_sparse.numpy(),
-                                  np.asarray(vf_jax).astype(np.int32))
+    np.testing.assert_array_equal(q_sparse.numpy(), q_jax)
+    np.testing.assert_array_equal(vf_sparse.numpy(), vf_jax)
     assert torch.equal(vf_sparse, vf_dense)
     cols = sorted(pop)
     assert torch.equal(q_sparse[:, :, cols], q_dense[:, :, cols])
     assert not q_sparse[:, :, [j for j in range(8) if j not in pop]].any()
+
+
+@pytest.mark.parametrize("pop", POPS, ids=["1,2,6", "0,3,7"])
+def test_batched_sparse_expansion_matches_jax(sparse_batch, pop):
+    """The batched sparse expansion at NQ = 3, each query with its own
+    keys, under two populated sets (one with column 0): expand_batch's
+    leaves over the sparse schedule's work lists equal each query's
+    expansion alone (NQ = 1, its own keys) leaf for leaf and the JAX
+    engine's (spiral_jax.coefficient_expansion_sparse) on every leaf a read
+    uses; the engine's expand_queries, padded to four column pairs, equals
+    the JAX engine's expand_query of each query and repeats query 0's
+    columns."""
+    pt = params_t.params_from_json(EXP_TINY)
+    right = pt.t_gsw * pt.db_dim_2
+    pps, queries = sparse_batch["pp"], sparse_batch["queries"]
+    jax = sparse_batch["jax"][frozenset(pop)]
+    srv = SpiralServerTorch(pt, "cpu")
+    srv.set_populated_dim0(pop)
+    splan = srv._splan
+    ct0 = st.to_ntt(pt, torch.from_numpy(
+        np.stack([q.ct for q in queries]).astype(np.int64)))
+    leaves = st.expand_batch(pt, srv.plan, splan.schedule, ct0,
+                             st.ExpansionKeys(pt, pps))
+    for i, pp in enumerate(pps):
+        assert torch.equal(leaves[i], st.expand_batch(
+            pt, srv.plan, splan.schedule, ct0[i:i + 1],
+            st.ExpansionKeys(pt, [pp]))[0])
+        q_jax, vf_jax = jax[i]
+        reg = leaves[i, splan.even_leaf_pos, :, 0].permute(2, 3, 0, 1)
+        np.testing.assert_array_equal(reg.numpy(), q_jax[:, :, sorted(pop)])
+        gsw = leaves[i, splan.odd_leaf_pos, :, 0].numpy()
+        assert gsw.shape[0] == right
+        np.testing.assert_array_equal(gsw, vf_jax[:, :, 1::2].transpose(
+            0, 2, 1, 3, 4).reshape(gsw.shape))
+    q_all, v_folding = srv.expand_queries(pps, queries, 4)
+    cols = q_all.reshape(q_all.shape[:3] + (4, 2))
+    for i, (q_jax, vf_jax) in enumerate(jax):
+        np.testing.assert_array_equal(cols[:, :, :, i].numpy(), q_jax)
+        np.testing.assert_array_equal(v_folding[i].numpy(), vf_jax)
+    assert torch.equal(cols[:, :, :, 3], cols[:, :, :, 0])
 
 
 def test_sparse_plan_rejects_full_and_empty():

@@ -286,11 +286,73 @@ def test_expand_round_matches_plain(cuda, side):
     x[3] = 0
     plan = sj.ExpansionPlan(PARAMS, cuda)
     for r in (0, 3):
-        tables = plan.auto[r]
+        tables = plan.auto(r)
         got = sj.expand_round(PARAMS, x.to(cuda), tables, t_exp).cpu()
         cpu_tables = tuple(t.cpu() for t in tables)
         assert torch.equal(got, sj.expand_round_plain(PARAMS, x, cpu_tables,
                                                       t_exp))
+
+
+def _expansion_key_sets(params, rng, nq, device):
+    """nq random key sets, each a key dict with its own keyed (w, w')
+    expansion matrices on ``device`` (left and right, a round each)."""
+    from sdk_tpu_torch.ops.modops import shoup_companion_arr, u32_bits
+
+    sets = []
+    for _ in range(nq):
+        d = {}
+        for name, t in (("v_exp_left", params.t_exp_left),
+                        ("v_exp_right", params.t_exp_right)):
+            d[name] = []
+            for _ in range(params.g()):
+                m = residues(rng, (2, t), params).numpy().astype(np.uint64)
+                d[name].append((u32_bits(m, device), u32_bits(
+                    shoup_companion_arr(params, m), device)))
+        sets.append(d)
+    return sets
+
+
+def _plant_zeros(params, cts):
+    """Row 0 of query 0's first entry all zero (its automorphism negates
+    zeros to Q), and the last query's last entry the NTT of a polynomial
+    with 64 zero coefficients in each row."""
+    cts[0, 0, 0] = 0
+    raw = torch.from_numpy(np.random.default_rng(5).integers(
+        0, params.modulus, (2, 1, params.poly_len)))
+    raw[:, :, :64] = 0
+    cts[-1, -1] = sj._to_ntt_plain(params, raw).to(cts.device)
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("params", ["t_exp8", "t_exp5", "t_exp1,3"])
+def test_expansion_matches_plain(cuda, params, nq):
+    """Kernel E on every round of the dense and of a sparse schedule (an S1
+    population: one first-dim row in eight), nq queries with their own
+    keys, zeros planted, against expansion_round_plain on the card: at the
+    default tiling (one launch a round) and at every cluster form."""
+    params = {"t_exp8": PARAMS, "t_exp5": V1_TINY, "t_exp1,3": EXP_T1}[params]
+    rng = np.random.default_rng(41 + nq)
+    right = params.t_gsw * params.db_dim_2
+    keys = sj.ExpansionKeys(params, _expansion_key_sets(params, rng, nq, cuda))
+    plan = sj.ExpansionPlan(params, cuda)
+    dim0 = 1 << params.db_dim_1
+    pop = rng.choice(dim0, max(1, dim0 // 8), replace=False).tolist()
+    for sched in (sj.dense_schedule(params, right, cuda),
+                  sj.SparseExpansionPlan(params, pop, right, cuda).schedule):
+        cts = residues(rng, (nq, 1, 2, 1), params).to(cuda)
+        for r, rnd in enumerate(sched):
+            _plant_zeros(params, cts)
+            want = sj.expansion_round_plain(params, plan, r, cts, rnd, keys)
+            _build.reset_launches()
+            got = sj.expansion_round(params, plan, r, cts, rnd, keys)
+            assert _build.LAUNCHES["expansion"] == 1
+            assert torch.equal(got, want), (r, rnd.n_out)
+            for c in (1, 2, 4):
+                tl = sj.expansion_tiling(1, 64, c)
+                assert torch.equal(sj._expansion_launch(
+                    params, plan, r, cts, rnd, keys, tl), want), (r, c)
+            cts = want
+    torch.cuda.synchronize()
 
 
 def test_encode_matches_plain(cuda):
@@ -316,6 +378,11 @@ def test_ingest_matches_plain(cuda):
 V1_TINY = params_from_json(
     '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 22, "t_gsw": 7,'
     ' "t_conv": 3, "t_exp_left": 5, "t_exp_right": 5, "instances": 2,'
+    ' "version": 1}')
+# t_exp 1 (57-bit digits, reduced before the transform) and 3
+EXP_T1 = params_from_json(
+    '{"n": 2, "nu_1": 3, "nu_2": 1, "p": 256, "q2_bits": 22, "t_gsw": 3,'
+    ' "t_conv": 3, "t_exp_left": 1, "t_exp_right": 3, "instances": 1,'
     ' "version": 1}')
 P16 = params_from_json(
     '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 16, "q2_bits": 20, "t_gsw": 8,'
@@ -483,7 +550,8 @@ def test_full_protocol_on_card(cuda):
         client_j.Query.deserialize(params_h, query.serialize(params)), db)
     assert all(counts[k] > 0 for k in ("ntt_forward", "ntt_inverse",
                                        "matmul_mod", "scan", "encode",
-                                       "expand_round")), counts
+                                       "expansion")), counts
+    assert counts["expansion"] == params.g() and counts["expand_round"] == 0
 
 
 @pytest.mark.parametrize("state", ["S1", "S2", "S3"])
@@ -516,7 +584,7 @@ def test_bucket_lifecycle_on_card(cuda, state):
     assert responses[0] == responses[1]
     assert layout == ("dense" if state == "S3" else "compact")
     assert (counts["scan_compact"] > 0) == (state != "S3"), counts
-    assert counts["expand_round"] > 0, counts
+    assert counts["expansion"] == params.g(), counts
     # S3 migrates on the read's flush, through kernel H'
     assert counts["compact_to_dense"] == (state == "S3"), counts
 
@@ -524,7 +592,7 @@ def test_bucket_lifecycle_on_card(cuda, state):
 def test_batched_engine_on_card_equals_cpu(cuda):
     """A 3-query batch (padded to 4 for the scan) from two sessions through
     the bucket on the card equals the CPU plain engine byte for byte, and
-    goes through F and G once per round and batch."""
+    goes through E, F and G once per round and batch."""
     params = PARAMS
     rng = np.random.default_rng(12)
     row_len = params.instances * params.n * params.n * params.bytes_per_chunk()
@@ -552,6 +620,7 @@ def test_batched_engine_on_card_equals_cpu(cuda):
     assert responses[0] == responses[1]
     assert counts["fold_round"] == params.db_dim_2 and counts["pack"] == 1
     assert counts["encode"] == 3 and counts["scan"] == 1, counts
+    assert counts["expansion"] == params.g(), counts     # a round, not a query
     for k in range(3):
         row = np.random.default_rng(items[3 + k]).integers(
             0, 256, row_len, dtype=np.uint8).tobytes()

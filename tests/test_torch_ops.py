@@ -19,7 +19,8 @@ import torch
 from sdk_tpu import ntt_host, poly, server_host
 from sdk_tpu.client import Client
 from sdk_tpu.ops import encode_jax, ntt_jax, spiral_jax as sj
-from sdk_tpu.ops.server_jax import _join_pair_np, _split_pair_np
+from sdk_tpu.ops.server_jax import (SpiralServerJax, _join_pair_np,
+                                    _split_pair_np, pp_to_device)
 from sdk_tpu import params as params_j
 from sdk_tpu.rng import ChaCha20Rng
 from sdk_tpu_torch import convert
@@ -181,26 +182,83 @@ def test_automorph_gadget_invert_match_jax():
         st.gadget_digits(params, inv[:, :1], 5, 1).numpy(), g2.astype(np.int64))
 
 
-def test_expansion_matches_jax():
-    """coefficient_expansion + regev_to_gsw through both engines'
-    expand_query. EXP_TINY's 4 rounds cover the skip masks: a partial odd
+@pytest.fixture(scope="module")
+def expansion_batch():
+    """Three EXP_TINY sessions, each with its own keys and one query (the
+    first as test_expansion_matches_jax has always made it), and the JAX
+    engine's expand_query of each: one traced JAX expansion for the
+    module's single and batched cases."""
+    params = EXP_TINY
+    assert (params.g(), params.stop_round()) == (4, 2)
+    sessions = [keys(params, seed) for seed in (0x11, 0x31, 0x41)]
+    queries = [sessions[0][0].generate_query(
+        5, noise_rng=ChaCha20Rng(b"\x14" * 32), query_seed=b"\x15" * 32)]
+    queries += [c.generate_query(2 * i + 1,
+                                 noise_rng=ChaCha20Rng(bytes([0x54 + i]) * 32),
+                                 query_seed=bytes([0x64 + i]) * 32)
+                for i, (c, _) in enumerate(sessions[1:])]
+    srv_j = SpiralServerJax(J(params))
+    jax = [tuple(np.asarray(x).astype(np.int32) for x in srv_j.expand_query(
+        pp_to_device(J(params), pp), q)) for (_, pp), q in zip(sessions,
+                                                              queries)]
+    return {"pp": [pp for _, pp in sessions], "queries": queries, "jax": jax}
+
+
+def test_expansion_matches_jax(expansion_batch):
+    """The expansion + regev_to_gsw through both engines' expand_query. EXP_TINY's 4 rounds cover the skip masks: a partial odd
     mask at stop_round (2) and no odd update after it (round 3, where no
     right key exists)."""
-    from sdk_tpu.ops.server_jax import SpiralServerJax, pp_to_device
+    from sdk_tpu_torch.ops.server import SpiralServerTorch
+
+    q_jax, vf_jax = expansion_batch["jax"][0]
+    srv = SpiralServerTorch(EXP_TINY, "cpu")
+    q_t, vf_t = srv.expand_query(srv._pp_dev(expansion_batch["pp"][0]),
+                                 expansion_batch["queries"][0])
+    np.testing.assert_array_equal(q_t.numpy(), q_jax)
+    np.testing.assert_array_equal(vf_t.numpy(), vf_jax)
+
+
+def test_batched_expansion_matches_jax(expansion_batch):
+    """The batched expansion at NQ = 3, each query with its own keys:
+    expand_batch's leaves (one expansion_round a round for the batch, the
+    dense schedule) equal each query's expansion alone (NQ = 1, its own
+    keys) leaf for leaf and the JAX engine's expansion
+    (spiral_jax.coefficient_expansion) on every leaf a read uses (the Regev leaves are its scan columns, the
+    GSW leaves the odd columns of its folding keys: regev_to_gsw
+    interleaves them verbatim); the engine's expand_queries, padded to
+    four column pairs, equals the JAX engine's expand_query of each query
+    and repeats query 0's columns; expand_query is its one-query case."""
     from sdk_tpu_torch.ops.server import SpiralServerTorch
 
     params = EXP_TINY
-    assert (params.g(), params.stop_round()) == (4, 2)
-    client, pp = keys(params)
-    query = client.generate_query(
-        5, noise_rng=ChaCha20Rng(b"\x14" * 32), query_seed=b"\x15" * 32)
-    q_jax, vf_jax = SpiralServerJax(J(params)).expand_query(
-        pp_to_device(J(params), pp), query)
     srv = SpiralServerTorch(params, "cpu")
-    q_t, vf_t = srv.expand_query(srv._pp_dev(pp), query)
-    np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_jax).astype(np.int32))
-    np.testing.assert_array_equal(vf_t.numpy(),
-                                  np.asarray(vf_jax).astype(np.int32))
+    pps = [srv._pp_dev(pp) for pp in expansion_batch["pp"]]
+    queries = expansion_batch["queries"]
+    right = params.t_gsw * params.db_dim_2
+    dim0 = 1 << params.db_dim_1
+    ct0 = st.to_ntt(params, torch.from_numpy(
+        np.stack([q.ct for q in queries]).astype(np.int64)))
+    schedule = st.dense_schedule(params, right)
+    leaves = st.expand_batch(params, srv.plan, schedule, ct0,
+                             st.ExpansionKeys(params, pps))
+    for i, pp in enumerate(pps):
+        assert torch.equal(leaves[i], st.expand_batch(
+            params, srv.plan, schedule, ct0[i:i + 1],
+            st.ExpansionKeys(params, [pp]))[0])
+        q_jax, vf_jax = expansion_batch["jax"][i]
+        reg = leaves[i, 0:2 * dim0:2, :, 0].permute(2, 3, 0, 1)
+        np.testing.assert_array_equal(reg.numpy(), q_jax)
+        gsw = leaves[i, 1:2 * right:2, :, 0].numpy()     # (right, 2, crt, n)
+        np.testing.assert_array_equal(gsw, vf_jax[:, :, 1::2].transpose(
+            0, 2, 1, 3, 4).reshape(gsw.shape))
+    q_all, v_folding = srv.expand_queries(pps, queries, 4)
+    cols = q_all.reshape(q_all.shape[:3] + (4, 2))
+    for i, (q_jax, vf_jax) in enumerate(expansion_batch["jax"]):
+        np.testing.assert_array_equal(cols[:, :, :, i].numpy(), q_jax)
+        np.testing.assert_array_equal(v_folding[i].numpy(), vf_jax)
+    assert torch.equal(cols[:, :, :, 3], cols[:, :, :, 0])
+    one, vf1 = srv.expand_query(pps[1], queries[1])
+    assert torch.equal(one, cols[:, :, :, 1]) and torch.equal(vf1, v_folding[1])
 
 
 def _fold_fixture():

@@ -120,6 +120,19 @@ def test_default_mesh_takes_distinct_cuda_devices():
 
 # ---- the Spiral engine -----------------------------------------------------
 
+def replay_expansions(expanded: dict):
+    """An engine's expand_queries answered from the queries' cached
+    expansions (id(query) -> expand_query's scan columns and folding keys),
+    laid out as the engine lays out a batch (padding columns query 0's)."""
+    def expand_queries(_pps, queries, columns=None):
+        cols = [expanded[id(q)][0] for q in queries]
+        cols += cols[:1] * ((columns or len(cols)) - len(cols))
+        q_all = torch.stack(cols, dim=-2)
+        return (q_all.reshape(q_all.shape[:3] + (-1,)),
+                torch.stack([expanded[id(q)][1] for q in queries]))
+    return expand_queries
+
+
 @pytest.fixture(scope="module")
 def engine_case():
     """A dense index of random rows, three queries of one session, the
@@ -148,7 +161,7 @@ def engine_case():
     single.set_db(dense)
     pp_dev = single._pp_dev(pp)
     expanded = {id(q): single.expand_query(pp_dev, q) for q in queries}
-    single.expand_query = lambda _pp, q: expanded[id(q)]
+    single.expand_queries = replay_expansions(expanded)
     batch = single.dispatch_queries_batched([(pp_dev, q) for q in queries])()
     db_h = oracle_db(FAST, rows)
     setup = pp.serialize(FAST)
@@ -177,7 +190,7 @@ def test_sharded_engine_matches_unsharded_and_oracle(engine_case, spec,
         srv.set_populated_dim0(c["populated"])
         assert srv._splan is not None
     else:
-        srv.expand_query = lambda _pp, q: c["expanded"][id(q)]
+        srv.expand_queries = replay_expansions(c["expanded"])
     d0 = (1 << FAST.db_dim_1) // srv.mesh.shape["db"]
     assert srv.db.shards[-1][-1].shape[3] == d0 // 4
     assert srv.process_query(c["pp"], c["queries"][0]) == c["want"][0]

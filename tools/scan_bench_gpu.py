@@ -26,9 +26,9 @@ change, change, parent). ``--sweep`` also times every tiling that
 ``scan_tiling`` or ``compact_scan_tiling`` offers (a checkout that has
 one).
 
-``--kernel ntt`` times A and A' on (count, 2, 2048) residues at the
-polynomial counts of the read path: 24 and 6,144 (the expansion's rounds r
-= 1 and 9), 8,192, and 65,536 (the 16-batch's fold input), each checked
+``--kernel ntt`` times A and A' on (count, 2, 2048) residues at 24 and
+6,144 polynomials (the expansion's rounds r = 1 and 9 before kernel E),
+8,192, and 65,536 (the 16-batch's fold input), each checked
 whole against the plain version, with
 CUDA events over back-to-back calls and with the kernel's device time from
 torch.profiler (the events carry the wrapper's host time at small counts).
