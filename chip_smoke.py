@@ -20,7 +20,11 @@ Phases (any failure exits non-zero, with no result line):
    at 24 and 6,144 (the expansion's rounds 1 and 9 before kernel E) and
    the read path's 65,536 (the 16-batch's fold input), each checked whole; F at every
    round of a fold at NQ = 1 and 16, every query checked, and the whole
-   fold.
+   fold; G in its three output modes (NTT, raw, and the response words of
+   pack + from_ntt + encode, the read path's) at NQ = 1 (a cluster of n
+   blocks a column) and 16 (one block), every query checked, version 1
+   and version 0, each timed. D (off the read path: G encodes) is still
+   checked and timed.
 4. small configs: whole responses of the port on the card byte-identical to
    the port on the CPU (the plain versions), decoded by the port's Client.
 5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
@@ -73,11 +77,14 @@ Phases (any failure exits non-zero, with no result line):
    hint setup with the real AES-derived A1/A2, 8-query membership batches
    through the port's client: members found, a non-member's bits decode
    to 0, a tampered query does not decode.
-11. device times: A, A' and F at the shapes of 3 and E on every round of
-   a dense expansion at NQ = 1 and 16, from torch.profiler, last, because
+11. device times: A, A' and F at the shapes of 3, E on every round of
+   a dense expansion at NQ = 1 and 16, and G in each mode at NQ = 1 and 16
+   beside its latency bound (the dependent transforms of pack's dataflow
+   times A's and A''s device time on one polynomial pair), from torch.profiler, last, because
    a profiler session slows the launches that follow it.
 12. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
-   10, each must be > 0 but E''s, which no path launches since E),
+   10, each must be > 0 but E''s and D's, which no path launches since E
+   and G's out_words mode; a service read and a 16-batch make 25 each),
    memory, wall times, and the kernel table as one
    JSON line; then the card, and as the last line, the device (count 1:
    the mesh of 6b is logical shards of that one card).
@@ -121,8 +128,14 @@ BATCH_WINDOW_MS = 25.0          # the service's read-coalescing window
 # integer operations of one Harvey butterfly, as the A / A' rows count them
 BUTTERFLY_OPS = 6
 # kernels held against their plain versions that no main path launches:
-# E' (expand_round.cu), which kernel E replaced on the expansion path
-OFF_PATH = ("expand_round",)
+# E' (expand_round.cu), which kernel E replaced on the expansion path, and D
+# (encode.cu), whose work kernel G does in its out_words mode
+OFF_PATH = ("expand_round", "encode")
+# hand launches of a read of the 1 GiB bucket, the same for a 16-batch: the
+# expansion's 14 (1 A for the query cts, 10 E, regev_to_gsw's A', A and B),
+# the scan, the negated folding keys' A' and A, the fold input's A', 6 F,
+# and 1 G for pack + encode
+READ_LAUNCHES = 25
 
 
 def log(msg: str) -> None:
@@ -441,6 +454,18 @@ def transform_ops(n_two_channel: int, params) -> int:
             * BUTTERFLY_OPS)
 
 
+def pack_critical_path(params, mode: str) -> tuple:
+    """The longest chain of dependent two-channel transforms in the function
+    kernel G computes (csrc/pack.cu), as (forward, inverse) counts, from
+    pack's dataflow whatever a kernel's tiling: the n r's are independent
+    until the v_int sum, and so are the 1 + t_conv forward transforms of
+    one step; r = n - 1's chain is one forward step and, for version 1, n -
+    1 shift steps of an inverse and a forward step; then, but for the NTT
+    output, one inverse of the summed rows."""
+    steps = params.n - 1 if params.version else 0
+    return 1 + steps, steps + (0 if mode == "ntt" else 1)
+
+
 def fold_case(params, gen: np.random.Generator, nq: int, in_slots: int, dev):
     """A fold round's input at NQ queries (per-query keys): random raw cts
     of (nq, it, in_slots) slots with a == 0, b == 0 and both zero planted
@@ -459,13 +484,94 @@ def fold_case(params, gen: np.random.Generator, nq: int, in_slots: int, dev):
     return cts.to(dev), keys[0], keys[1]
 
 
+def check_pack(params, dev, table: KernelTable,
+               gen: np.random.Generator) -> None:
+    """G against its plain versions in its three output modes at the 1 GiB
+    bucket's shapes, NQ = 1 and 16 with per-query keys, and at version 0
+    (the fast test params); each mode timed; its row."""
+    from sdk_tpu_torch import _build
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.encode import ResponseEncodePlan
+    from sdk_tpu_torch.params import get_fast_expansion_testing_params
+
+    z = params.poly_len
+
+    def pack_case(prm, nq: int):
+        nkeys = prm.n if prm.version == 0 else 2
+        keys = [[residues(prm, gen, (prm.n + 1, prm.t_conv), dev)
+                 for _ in range(nkeys)] for _ in range(nq)]
+        v_ct = torch.from_numpy(gen.integers(
+            0, prm.modulus, (nq, prm.instances, prm.n * prm.n, 2, 1,
+                             prm.poly_len), dtype=np.int64))
+        v_ct[0, 0, 0] = 0
+        v_ct[nq - 1, 0, 1, :, 0, :3] = torch.tensor(
+            [0, prm.modulus - 1, prm.modulus // 2])
+        return v_ct.to(dev), keys
+
+    def pack_check(prm, nq: int, label: str):
+        v_ct, keys = pack_case(prm, nq)
+        plan = ResponseEncodePlan(prm, dev)
+        got = {"ntt": sj.pack_queries(prm, v_ct, keys),
+               "raw": sj.pack_queries(prm, v_ct, keys, raw=True),
+               "words": sj.pack_encode(prm, v_ct, keys, plan)}
+        want = sj.pack_queries_plain(prm, v_ct, keys)
+        raw = sj._from_ntt_plain(prm, want)
+        words = torch.stack([plan.encode_plain(p) for p in raw])
+        tl = sj.pack_tiling(prm, nq, sj._sm_count(dev))
+        for mode, w in (("ntt", want), ("raw", raw), ("words", words)):
+            table.check("pack", f"{label} NQ={nq} ({tl.cluster} block(s) a "
+                        f"column), every query, {mode}",
+                        max_abs_err(got[mode], w))
+        return v_ct, keys, plan
+
+    fast = get_fast_expansion_testing_params()
+    for nq in (1, 16):
+        pack_check(fast, nq, "version 0")
+    pack_ms = {}
+    n, tc = params.n, params.t_conv
+    for nq in (1, 16):
+        v_ct, keys, plan = pack_check(params, nq, f"version {params.version}")
+        for mode in sj.PACK_MODES:
+            pack_ms[f"nq{nq}_{mode}"] = cuda_ms(lambda: sj._pack_launch(
+                params, v_ct, keys, mode, plan), 20)
+        if nq == 1:
+            plain_ms = cuda_ms(lambda: sj.pack_encode_plain(
+                params, v_ct, keys, plan), 2)
+            # per (instance, column): per r, 1 + t_conv forward transforms,
+            # r shift steps of 1 inverse + t_conv forward (version 1); the
+            # final inverse of n+1 rows; (n+1) rows x 2z multiply-adds a
+            # digit; the compose and rescale of (n+1) z values
+            steps = sum(range(n)) if params.version else 0
+            per_block = (transform_ops(n * (1 + tc) + steps * (1 + tc) + n + 1,
+                                       params)
+                         + (n + steps) * tc * (n + 1) * 2 * z * 2
+                         + (n + 1) * z * 30)
+            bnd = bound(nbytes(v_ct) + nbytes(*keys[0]) + 4 * plan.num_words,
+                        params.instances * n * per_block, INT32_OPS_PER_S)
+            shape = (f"{tuple(v_ct.shape)} int64 -> {plan.num_words} words "
+                     f"(out_words: pack + from_ntt + encode)")
+    sms = sj._sm_count(dev)
+    tl = {nq: sj.pack_tiling(params, nq, sms) for nq in (1, 16)}
+    table.timed("pack", "sdk_tpu_torch/csrc/pack.cu",
+                "sdk_tpu/ops/spiral_jax.py:878", shape, pack_ms["nq1_words"],
+                plain_ms, bnd, None,
+                **{f"{k}_ms": v for k, v in pack_ms.items()},
+                pairs=tl[1].pairs, nq1_cluster=tl[1].cluster,
+                nq16_cluster=tl[16].cluster,
+                blocks_per_sm=_build.lib()["sdk_pack_occupancy"](
+                    params.n, params.version, tl[1].pairs),
+                ptxas=_build.ptxas_usage("pack"))
+    log(f"[kernels] G equals its plain version (version 0 and 1, NQ = 1 and "
+        f"16, NTT, raw and word outputs); "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in pack_ms.items()))
+
+
 def phase_fused_kernels(params, dev, table: KernelTable) -> None:
     """F, G and H against their plain versions at the 1 GiB bucket's shapes,
     and G and H once on other parameter sets (version 0; p = 16)."""
     from sdk_tpu_torch.kv import ingest as ing
     from sdk_tpu_torch.ops import spiral as sj
-    from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
-                                      params_from_json)
+    from sdk_tpu_torch.params import params_from_json
 
     gen = np.random.default_rng(SEED + 7)
     z = params.poly_len
@@ -534,60 +640,7 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
         f"NQ=16 {fold_ms[(16, 0)]['ms']:.4f} ms, whole fold NQ=1 "
         f"{whole[1]:.4f} ms, NQ=16 {whole[16]:.4f} ms")
 
-    # ---- G: 4 instances, NQ = 1 and 16, per-query keys; version 0 once
-    def pack_case(prm, nq: int):
-        nkeys = prm.n if prm.version == 0 else 2
-        keys = [[residues(prm, gen, (prm.n + 1, prm.t_conv), dev)
-                 for _ in range(nkeys)] for _ in range(nq)]
-        v_ct = torch.from_numpy(gen.integers(
-            0, prm.modulus, (nq, prm.instances, prm.n * prm.n, 2, 1,
-                             prm.poly_len), dtype=np.int64))
-        v_ct[0, 0, 0] = 0
-        return v_ct.to(dev), keys
-
-    def pack_check(prm, nq: int, label: str):
-        v_ct, keys = pack_case(prm, nq)
-        got = sj.pack_queries(prm, v_ct, keys)
-        raw = sj.pack_queries(prm, v_ct, keys, raw=True)
-        for q in sorted({0, nq - 1}):
-            want = torch.stack([sj.pack_plain(prm, v_ct[q, j], keys[q])
-                                for j in range(prm.instances)])
-            table.check("pack", f"{label} NQ={nq} query {q}",
-                        max_abs_err(got[q], want))
-            table.check("pack", f"{label} NQ={nq} query {q}, raw", max_abs_err(
-                raw[q], sj._from_ntt_plain(prm, want)))
-        return v_ct, keys
-
-    fast = get_fast_expansion_testing_params()
-    pack_check(fast, 2, "version 0")
-    pack_ms = {}
-    for nq in (1, 16):
-        v_ct, keys = pack_check(params, nq, f"version {params.version}")
-        pack_ms[nq] = cuda_ms(lambda: sj.pack_queries(params, v_ct, keys,
-                                                      raw=True), 20)
-        if nq == 1:
-            plain_ms = cuda_ms(lambda: [sj._from_ntt_plain(
-                params, sj.pack_plain(params, v_ct[0, j], keys[0]))
-                for j in range(params.instances)], 2)
-            n, tc = params.n, params.t_conv
-            # per (instance, column): per r, 1 + t_conv forward transforms,
-            # r shift steps of 1 inverse + t_conv forward (version 1); the
-            # final inverse of n+1 rows; (n+1) rows x 2z multiply-adds a digit
-            steps = sum(range(n)) if params.version else 0
-            per_block = (transform_ops(n * (1 + tc) + steps * (1 + tc) + n + 1,
-                                       params)
-                         + (n + steps) * tc * (n + 1) * 2 * z * 2)
-            bnd = bound(nbytes(v_ct) + nbytes(*keys[0])
-                        + 8 * params.instances * (n + 1) * n * z,
-                        params.instances * n * per_block, INT32_OPS_PER_S)
-            shape = (f"{tuple(v_ct.shape)} int64 -> ({params.instances}, "
-                     f"{n + 1}, {n}, {z}) int64 (pack + from_ntt)")
-    table.timed("pack", "sdk_tpu_torch/csrc/pack.cu",
-                "sdk_tpu/ops/spiral_jax.py:878", shape, pack_ms[1], plain_ms,
-                bnd, None, nq16_ms=pack_ms[16])
-    log(f"[kernels] G equals its plain version (version 0 and 1, NQ = 1 and "
-        f"16, NTT and raw outputs); NQ=1 {pack_ms[1]:.4f} ms, NQ=16 "
-        f"{pack_ms[16]:.4f} ms")
+    check_pack(params, dev, table, gen)
 
     # ---- H: 256 items into a dense tensor and into compact planes at cap 8
     K = min(256, params.num_items() // 4, 8 * num_per)   # 256 at 1 GiB
@@ -647,6 +700,46 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
 
 
 
+def pack_device_times(params, dev, table: KernelTable,
+                      gen: np.random.Generator) -> None:
+    """G's device time in each mode at NQ = 1 and 16, and its latency
+    bound: the dependent transforms of one block's chain
+    (pack_critical_path) times the device time of one core transform of one
+    polynomial pair (A and A' on (1, 2, z): a group a channel)."""
+    from sdk_tpu_torch.ops import ntt, spiral as sj
+    from sdk_tpu_torch.ops.encode import ResponseEncodePlan
+
+    pair = residues(params, gen, (1,), dev)
+    t_fwd = device_ms(lambda: ntt.ntt_forward(params, pair), "ntt_kernel", 20)
+    t_inv = device_ms(lambda: ntt.ntt_inverse(params, pair), "ntt_kernel", 20)
+    g = table.rows["pack"]
+    g.update(pair_forward_device_ms=t_fwd, pair_inverse_device_ms=t_inv)
+    plan = ResponseEncodePlan(params, dev)
+    for nq in (1, 16):
+        keys = [[residues(params, gen, (params.n + 1, params.t_conv), dev)
+                 for _ in range(2 if params.version else params.n)]
+                for _ in range(nq)]
+        v_ct = torch.from_numpy(gen.integers(
+            0, params.modulus, (nq, params.instances, params.n * params.n, 2,
+                                1, params.poly_len), dtype=np.int64)).to(dev)
+        for mode in sj.PACK_MODES:
+            g[f"nq{nq}_{mode}_device_ms"] = device_ms(
+                lambda: sj._pack_launch(params, v_ct, keys, mode, plan),
+                "pack_kernel", 20)
+        del keys, v_ct
+    for mode in sj.PACK_MODES:
+        fwd, inv = pack_critical_path(params, mode)
+        g[f"{mode}_critical_path"] = {"forward": fwd, "inverse": inv}
+        g[f"{mode}_latency_bound_ms"] = (
+            None if t_fwd is None or t_inv is None else fwd * t_fwd + inv * t_inv)
+    g["device_ms"] = g["nq1_words_device_ms"]
+    g["latency_bound_ms"] = g["words_latency_bound_ms"]
+    log(f"[device times] G out_words NQ=1 {g['nq1_words_device_ms']} ms, "
+        f"NQ=16 {g['nq16_words_device_ms']} ms against a latency bound of "
+        f"{g['latency_bound_ms']} ms ({g['words_critical_path']} dependent "
+        f"transforms of a pair: {t_fwd} / {t_inv} ms)")
+
+
 def phase_device_times(params, dev, table: KernelTable) -> None:
     """Device times of A, A' and F from torch.profiler on fresh inputs of
     the shapes the kernel phases timed with CUDA events (which carry the
@@ -689,6 +782,7 @@ def phase_device_times(params, dev, table: KernelTable) -> None:
             cts = sj.expansion_round(params, plan, r, cts, rnd, keys)
         table.rows["expansion"][f"dense_nq{nq}_whole_device_ms"] = total
         del cts, keys
+    pack_device_times(params, dev, table, gen)
     torch.cuda.empty_cache()
     row = table.rows["fold_round"]
     log("[device times] torch.profiler: A 8192 polys "
@@ -1751,6 +1845,18 @@ def check_expansion_launches(params, single: list, batch: list,
         f"a read and for a 16-batch ({first})")
 
 
+def check_read_launches(per_read: dict, per_batch: dict) -> None:
+    """A read and a 16-batch of the service make the same READ_LAUNCHES hand
+    launches: one G encodes the whole batch, and D is not launched."""
+    if per_read != per_batch or sum(per_read.values()) != READ_LAUNCHES \
+            or per_read.get("pack") != 1 or "encode" in per_read:
+        raise AssertionError(f"hand launches: a read {per_read}, a 16-batch "
+                             f"{per_batch}; want {READ_LAUNCHES} each, one G "
+                             f"and no D")
+    log(f"[service] hand launches: {READ_LAUNCHES} for a read and for a "
+        f"16-batch ({per_read})")
+
+
 def phase_service(params, sessions: Sessions, dev, launches: Launches,
                   n_keys: int = 300, n_rows: int = 4200) -> dict:
     """The 1 GiB bucket behind its HTTP service on localhost, driven through
@@ -1873,6 +1979,8 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
                 lambda: srv.private_read_blobs(batch))[1] * 1e3
                 for _ in range(3)])
         check_expansion_launches(params, exp_single, exp_batch, len(single), 3)
+        check_read_launches(per_read, {k: v // 3 for k, v in
+                                       direct_counts.items() if v})
         direct1 = [timed_s(lambda b=b: srv.private_read_blobs([b]))[1] * 1e3
                    for b in single]
         if srv.private_read_blobs(batch) != resps:

@@ -68,8 +68,9 @@ _SIGNATURES = {
     "sdk_fold_round": ("fold_round", (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                       _I, _I, _I, _U, _U, _ULL, _I, _P)),
     "sdk_fold_round_occupancy": ("fold_round", ()),
-    "sdk_pack": ("pack", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U,
-                          _U, _ULL, _P)),
+    "sdk_pack": ("pack", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _U, _U, _ULL, _LL, _ULL, _U, _U, _U, _U, _U, _P)),
+    "sdk_pack_occupancy": ("pack", (_I, _I, _I)),
     "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL,
                               _LL, _I, _U, _U, _P)),
     "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _P, _LL, _I,
@@ -194,6 +195,10 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` with ``device`` current, raise on a
     launch error, count the launch."""
     fns = lib()
+    # ctypes passes surplus arguments unconverted, shifting the rest
+    if len(args) != len(fns[entry].argtypes):
+        raise TypeError(f"{entry}: {len(args)} arguments, "
+                        f"{len(fns[entry].argtypes)} declared")
     with torch.cuda.device(device):
         rc = fns[entry](*args)
     if rc != 0:

@@ -4,12 +4,10 @@
 //
 // Replaces: sdk_tpu/ops/encode_jax.py:99 ResponseEncodePlan.encode and
 // :40 rescale_pair (reference semantics lib/spiral-rs arith.rs rescale and
-// util.rs write_arbitrary_bits).
-//
-// Rescale without a 128-bit product or a 57-bit divide, as the JAX build:
-// rescale(x) = floor(N / Q) mod out with N = x*out + Q//2. N mod Q comes
-// from the two CRT residues (Garner), and since floor(N/Q) < 2^32 and Q is
-// odd, floor(N/Q) = low32(N - (N mod Q)) * Q^{-1} mod 2^32 exactly.
+// util.rs write_arbitrary_bits). The rescale's arithmetic lives in
+// encode_device.cuh, which kernel G (pack.cu) shares: since G encodes in its
+// out_words mode, no read launches D; D stays the standalone counterpart of
+// encode_jax.py:99.
 //
 // What bounds it on the H100: launch and latency. The 1 GiB bucket's
 // response is 21504 words from 49152 values (0.4 MB read, 86 KB written), a
@@ -22,6 +20,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "encode_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -32,23 +32,8 @@ struct EncodeArgs {
   unsigned long long seg0_bits;  // bits of row 0 within an instance
   unsigned long long inst_vals;  // values per instance: (n+1) * n * Z
   unsigned long long seg0_vals;  // values of row 0: n * Z
-  unsigned long long h;          // Q / 2
-  uint32_t q2_bits, q1_bits, q2_val, q1_val;
-  uint32_t q0, q1, inv_q0_mod_q1, qinv;  // qinv = Q^{-1} mod 2^32
+  sdk::EncodeConsts e;
 };
-
-__device__ uint32_t rescale(uint64_t x, uint32_t out_mod, const EncodeArgs& a) {
-  const uint64_t q0 = a.q0, q1 = a.q1;
-  const uint64_t v0 = ((x % q0) * (out_mod % q0) + a.h % q0) % q0;
-  const uint64_t v1 = ((x % q1) * (out_mod % q1) + a.h % q1) % q1;
-  const uint64_t d = (v1 + q1 - v0 % q1) % q1;
-  const uint64_t t = (d * a.inv_q0_mod_q1) % q1;
-  const uint32_t n_mod_q_lo = static_cast<uint32_t>(v0 + q0 * t);
-  const uint32_t low32_n =
-      static_cast<uint32_t>(x) * out_mod + static_cast<uint32_t>(a.h);
-  const uint32_t r = (low32_n - n_mod_q_lo) * a.qinv;
-  return r >= out_mod ? r - out_mod : r;
-}
 
 __global__ void encode_kernel(const uint64_t* __restrict__ vals,
                               uint32_t* __restrict__ words, long long nwords,
@@ -63,20 +48,20 @@ __global__ void encode_kernel(const uint64_t* __restrict__ vals,
     const unsigned long long inst = p / a.inst_bits;
     unsigned long long rem = p % a.inst_bits;
     unsigned long long off = inst * a.inst_vals;
-    uint32_t width, bo, out_mod;
-    if (rem < a.seg0_bits) {
-      width = a.q2_bits;
-      out_mod = a.q2_val;
-      off += rem / width;
-      bo = static_cast<uint32_t>(rem % width);
-    } else {
+    int f = 0;
+    if (rem >= a.seg0_bits) {
       rem -= a.seg0_bits;
-      width = a.q1_bits;
-      out_mod = a.q1_val;
-      off += a.seg0_vals + rem / width;
-      bo = static_cast<uint32_t>(rem % width);
+      off += a.seg0_vals;
+      f = 1;
     }
-    const uint32_t v = rescale(vals[off], out_mod, a);
+    const uint32_t width = f ? a.e.bits[1] : a.e.bits[0];
+    off += rem / width;
+    const uint32_t bo = static_cast<uint32_t>(rem % width);
+    const uint64_t x = vals[off];
+    const uint32_t v = sdk::rescale(
+        sdk::barrett_reduce(x, a.e.q0, a.e.mu0),
+        sdk::barrett_reduce(x, a.e.q1, a.e.mu1), static_cast<uint32_t>(x), f,
+        a.e);
     const uint32_t take = min(width - bo, 32u - filled);
     const uint32_t mask = take == 32 ? 0xFFFFFFFFu : ((1u << take) - 1u);
     word |= ((v >> bo) & mask) << filled;
@@ -102,15 +87,8 @@ extern "C" int sdk_encode(const void* vals, void* words, long long nwords,
   a.num_bits = a.inst_bits * instances;
   a.inst_vals = 1ULL * (n + 1) * n * Z;
   a.seg0_vals = 1ULL * n * Z;
-  a.h = modulus / 2;
-  a.q2_bits = q2_bits;
-  a.q1_bits = q1_bits;
-  a.q2_val = q2_val;
-  a.q1_val = q1_val;
-  a.q0 = q0;
-  a.q1 = q1;
-  a.inv_q0_mod_q1 = inv_q0_mod_q1;
-  a.qinv = qinv;
+  a.e = sdk::make_encode_consts(q0, q1, inv_q0_mod_q1, modulus, qinv, q2_val,
+                                q1_val, q2_bits, q1_bits);
   if (nwords <= 0) return static_cast<int>(cudaGetLastError());
   const long long blocks = (nwords + kThreads - 1) / kThreads;
   encode_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,

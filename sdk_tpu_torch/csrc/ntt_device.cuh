@@ -5,14 +5,14 @@
 //   is owned by a group of 128 threads that hold 16 coefficients each in
 //   registers and run three passes of 3, 4 and 4 stages (radix 2^3, 2^4,
 //   2^4) with two exchanges through a padded shared buffer between them, so
-//   a transform has two barriers of its group. ntt.cu (A, A') and
-//   fold_round.cu (F) run on it. The passes' index maps and twiddle indices
-//   are mirrored by sdk_tpu_torch/ops/ntt.py (CORE_PASSES, core_index,
-//   core_pad, core_twiddle), which tests/test_torch_ntt_fold_schedule.py
-//   emulates.
+//   a transform has two barriers of its group. ntt.cu (A, A'),
+//   fold_round.cu (F), expansion.cu (E) and pack.cu (G) run on it. The
+//   passes' index maps and twiddle indices are mirrored by
+//   sdk_tpu_torch/ops/ntt.py (CORE_PASSES, core_index, core_pad,
+//   core_twiddle), which tests/test_torch_ntt_fold_schedule.py emulates.
 // * ntt_forward_smem / ntt_inverse_smem: the older stage-at-a-time form over
 //   polynomials held in shared memory (one barrier a stage), still used by
-//   pack.cu (G) and ingest.cu (H).
+//   ingest.cu (H).
 //
 // Arithmetic (both forms): the Harvey butterflies of the reference
 // (ntt_host.py:20-77) with Shoup-scaled twiddles from params.ntt_tables, in

@@ -1,5 +1,10 @@
 """Response encode on the device: modulus-switch rescale + bit-pack, so only
-the wire bytes leave the card. Kernel group D (csrc/encode.cu).
+the wire bytes leave the card. Kernel group D (csrc/encode.cu). A read does
+not launch D: kernel G encodes in the same launch as the pack
+(ops/spiral.py pack_encode, csrc/encode_device.cuh holds the arithmetic
+both kernels run); ResponseEncodePlan.encode is the standalone counterpart
+of encode_jax.py:99, and its plan (widths, word count, encode_plain) is
+what G's out_words mode follows.
 
 Ports sdk_tpu/ops/encode_jax.py. Reference semantics: rescale
 (lib/spiral-rs/src/arith.rs:429-444) and encode (lib/server/src/server.rs

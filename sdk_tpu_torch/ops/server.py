@@ -238,16 +238,14 @@ class SpiralServerTorch:
     def _pack_encode(self, folded: torch.Tensor, v_packings: list):
         """Folded cts (NQ, inst, trials, 2, 1, z) and each query's packing
         keys -> the wire responses (NQ, words) int32 on the device: one
-        launch of kernel G (pack + from_ntt) for the batch, one of D per
-        query."""
-        packed = sj.pack_queries(self.params, folded, v_packings, raw=True)
-        return torch.stack([self.encode_plan.encode(packed[i])
-                            for i in range(packed.shape[0])])
+        launch of kernel G (pack, from_ntt and encode) for the batch."""
+        return sj.pack_encode(self.params, folded, v_packings,
+                              self.encode_plan)
 
     def _dispatch(self, pps: list, queries: list) -> torch.Tensor:
         """Enqueue a batch: one batched expansion, ONE scan with R = 2*NQ
         columns (column 2*i + r is row r of query i), one fold and one pack
-        for the whole batch, encode per query. NQ is padded to a power of
+        + encode for the whole batch. NQ is padded to a power of
         two with copies of query 0's columns (server_jax.py:644-648), so R
         always splits into the scan kernel's column blocks; the fillers'
         columns are dropped after the scan. With a mesh the scan and fold

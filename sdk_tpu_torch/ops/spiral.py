@@ -15,6 +15,7 @@ Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
   fold      : GSW external products over db_dim_2 rounds, one launch of
               kernel F (csrc/fold_round.cu) per round for a whole batch
   pack      : recombine n*n scalar cts into one matrix ct (versions 0, 1),
+              and with pack_encode from_ntt and the response encode too,
               kernel G (csrc/pack.cu), one launch for a whole batch
 
 Representation (see modops): NTT matrices are int32 ``(rows, cols, crt, n)``
@@ -42,7 +43,7 @@ from ..params import Params
 from .. import _build
 from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
                      reduce_channels, shoup_companion_arr, u32_bits)
-from .ntt import (ntt_forward, ntt_forward_plain, ntt_inverse,
+from .ntt import (core_pad, ntt_forward, ntt_forward_plain, ntt_inverse,
                   ntt_inverse_plain)
 from .ntt import tables as ntt_tables
 
@@ -1254,43 +1255,122 @@ def pack_plain(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
+PACK_MODES = ("ntt", "raw", "words")
+_PACK_MAX_SMEM = 227 * 1024
+
+
+class PackTiling(NamedTuple):
+    """How kernel G cuts its work (see csrc/pack.cu): ``cluster`` blocks a
+    (query, instance, column), 1 or n (one r a block, the partial sums added
+    through distributed shared memory), each of ``pairs`` pairs of 128-thread
+    transform groups (a group a CRT channel), which run that many
+    independent transforms side by side."""
+
+    pairs: int
+    cluster: int
+
+
+def pack_smem_bytes(params: Params, pairs: int) -> int:
+    """Kernel G's dynamic shared memory (csrc/pack.cu smem_bytes): two
+    padded exchange buffers a group, the (n+1)-row sum, and for version 1
+    the shift steps' row 0 and its composed values."""
+    rows = params.n + 1 + (0 if params.version == 0 else 2)
+    return 4 * (4 * pairs * core_pad(params.poly_len)
+                + rows * 2 * params.poly_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA card (pack_tiling's one-wave test)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def pack_tiling(params: Params, nq: int, sms: int,
+                cluster: int | None = None) -> PackTiling:
+    """Kernel G's tiling for a batch of ``nq`` queries on a card of ``sms``
+    SMs: as many pairs (up to 4, 1024 threads) as the widest step of its
+    chain has independent transforms (1 + t_conv forward transforms a
+    round, n + 1 rows at the end) and as fit in shared memory, one block an
+    SM; a cluster of n blocks a (query, instance, column) when all the
+    clusters' blocks fit one wave, else one block. ``cluster`` overrides
+    the form (tests, sweeps)."""
+    n = params.n
+    pairs = min(4, max(1 + params.t_conv, n + 1))
+    while pairs > 1 and pack_smem_bytes(params, pairs) > _PACK_MAX_SMEM:
+        pairs -= 1
+    if cluster is None:
+        cluster = n if nq * params.instances * n * n <= sms else 1
+    if pack_smem_bytes(params, pairs) > _PACK_MAX_SMEM \
+            or cluster not in (1, n) or cluster > 8:
+        raise ValueError(f"pack tiling: {pairs} pairs, cluster {cluster} at "
+                         f"n = {n}, version {params.version}")
+    return PackTiling(pairs, cluster)
+
+
 def _pack_launch(params: Params, v_ct: torch.Tensor, v_packings: list,
-                 raw: bool) -> torch.Tensor:
+                 mode: str, plan=None,
+                 cluster: int | None = None) -> torch.Tensor:
     """Kernel G (csrc/pack.cu) on v_ct (nq, instances, n*n, 2, 1, z) with one
-    key list per query; the keys go in as a table of device pointers."""
+    key list per query; the keys go in as a table of device pointers. mode
+    "ntt", "raw" or "words" (the last with ``plan``, a ResponseEncodePlan of
+    ``params``). ``cluster`` overrides :func:`pack_tiling`'s form (tests,
+    sweeps)."""
     n, z = params.n, params.poly_len
     nq, inst = v_ct.shape[:2]
     nkeys = n if params.version == 0 else 2
     keys = [[_key_matrix(k) for k in vp[:nkeys]] for vp in v_packings]
     want = (n + 1, params.t_conv, params.crt_count, z)
     if (v_ct.dtype != torch.int64 or tuple(v_ct.shape[2:]) != (n * n, 2, 1, z)
-            or params.crt_count != 2 or len(keys) != nq
+            or params.crt_count != 2 or params.poly_len_log2 != 11
+            or len(keys) != nq or mode not in PACK_MODES
             or any(len(ks) != nkeys or k.dtype != torch.int32
                    or tuple(k.shape) != want for ks in keys for k in ks)):
         raise ValueError(f"pack: v_ct {v_ct.dtype} {tuple(v_ct.shape)} with "
                          f"{len(keys)} key lists of (n+1, t_conv, crt, z) "
-                         f"int32 matrices expected")
+                         f"int32 matrices, mode {mode!r}")
+    num_words, words_args = 0, (0, 0, 0, 0, 0, 0)
+    if mode == "words":
+        # at z = 2048 every (instance, row, column) segment is whole words:
+        # the blocks' word ranges tile the response and no word is padding
+        if plan.num_words * 32 != plan.num_bits:
+            raise ValueError(f"pack: a response of {plan.num_bits} bits has "
+                             f"padding words")
+        num_words = plan.num_words
+        words_args = (params.modulus, pow(params.modulus, -1, 1 << 32),
+                      plan.q2_val, plan.q1_val, plan.q2_bits, plan.q1_bits)
     v_ct = v_ct.contiguous()
+    if v_ct.data_ptr() % 16:              # 16-byte loads of int64 pairs
+        v_ct = v_ct.clone()
     keys = [[k.contiguous() for k in ks] for ks in keys]
     tb = ntt_tables(params, v_ct.device)
     _build.require_cuda(v_ct, tb, *[k for ks in keys for k in ks])
+    tl = pack_tiling(params, nq, _sm_count(v_ct.device), cluster)
     table = torch.tensor([k.data_ptr() for ks in keys for k in ks],
                          dtype=torch.int64).to(v_ct.device)
-    if raw:
-        out = torch.empty((nq, inst, n + 1, n, z), dtype=torch.int64,
-                          device=v_ct.device)
-    else:
-        out = torch.empty((nq, inst, n + 1, n, 2, z), dtype=torch.int32,
-                          device=v_ct.device)
+    shape, dtype = {"ntt": ((nq, inst, n + 1, n, 2, z), torch.int32),
+                    "raw": ((nq, inst, n + 1, n, z), torch.int64),
+                    "words": ((nq, num_words), torch.int32)}[mode]
+    out = torch.empty(shape, dtype=dtype, device=v_ct.device)
     q0, q1 = params.moduli
     _build.launch("pack", "sdk_pack", v_ct.device, v_ct.data_ptr(),
-                  table.data_ptr(), tb.data_ptr(),
-                  None if raw else out.data_ptr(),
-                  out.data_ptr() if raw else None, nq, inst, n, params.t_conv,
+                  table.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                  PACK_MODES.index(mode), nq, inst, n, params.t_conv,
                   _get_bits_per(params, params.t_conv), params.version,
-                  params.poly_len_log2, q0, q1, params.inv_q0_mod_q1,
-                  _build.stream_of(v_ct))
+                  tl.pairs, tl.cluster, q0, q1, params.inv_q0_mod_q1, num_words,
+                  *words_args, _build.stream_of(v_ct))
     return out
+
+
+def pack_queries_plain(params: Params, v_ct: torch.Tensor, v_packings: list,
+                       raw: bool = False) -> torch.Tensor:
+    """pack_queries' plain version (pack_plain per (query, instance), and
+    with ``raw`` the plain from_ntt) on any device: it never launches a
+    kernel."""
+    out = torch.stack([
+        torch.stack([pack_plain(params, v_ct[i, j], vp)
+                     for j in range(v_ct.shape[1])])
+        for i, vp in enumerate(v_packings)])
+    return _from_ntt_plain(params, out) if raw else out
 
 
 def pack_queries(params: Params, v_ct: torch.Tensor, v_packings: list,
@@ -1299,17 +1379,36 @@ def pack_queries(params: Params, v_ct: torch.Tensor, v_packings: list,
     n*n, 2, 1, z), v_packings one key list per query. Returns the packed
     NTT matrices (nq, instances, n+1, n, crt, z) int32, or with ``raw`` their
     from_ntt (nq, instances, n+1, n, z) int64, which kernel G computes in
-    the same launch. One launch of kernel G on a CUDA tensor, pack_plain per
-    (query, instance) on a CPU tensor."""
+    the same launch. One launch of kernel G on a CUDA tensor, the plain
+    version on a CPU tensor."""
     if v_ct.device.type == "cuda":
-        return _pack_launch(params, v_ct, v_packings, raw)
+        return _pack_launch(params, v_ct, v_packings, "raw" if raw else "ntt")
     if v_ct.device.type != "cpu":
         raise ValueError(f"unsupported device {v_ct.device}")
-    out = torch.stack([
-        torch.stack([pack_plain(params, v_ct[i, j], vp)
-                     for j in range(v_ct.shape[1])])
-        for i, vp in enumerate(v_packings)])
-    return _from_ntt_plain(params, out) if raw else out
+    return pack_queries_plain(params, v_ct, v_packings, raw)
+
+
+def pack_encode_plain(params: Params, v_ct: torch.Tensor, v_packings: list,
+                      plan) -> torch.Tensor:
+    """pack_encode's plain version on any device: pack_queries_plain(raw)
+    then plan.encode_plain per query."""
+    packed = pack_queries_plain(params, v_ct, v_packings, raw=True)
+    return torch.stack([plan.encode_plain(p) for p in packed])
+
+
+def pack_encode(params: Params, v_ct: torch.Tensor, v_packings: list,
+                plan) -> torch.Tensor:
+    """The folded cts of a batch to its wire responses: pack, from_ntt and
+    the response encode of ``plan`` (a ResponseEncodePlan of ``params``),
+    what server_jax.py:398 _pack_encode_impl runs. v_ct raw (nq, instances,
+    n*n, 2, 1, z), v_packings one key list per query; returns (nq,
+    plan.num_words) int32 words. One launch of kernel G in its out_words
+    mode on a CUDA tensor, the plain version on a CPU tensor."""
+    if v_ct.device.type == "cuda":
+        return _pack_launch(params, v_ct, v_packings, "words", plan)
+    if v_ct.device.type != "cpu":
+        raise ValueError(f"unsupported device {v_ct.device}")
+    return pack_encode_plain(params, v_ct, v_packings, plan)
 
 
 def pack(params: Params, v_ct: torch.Tensor, v_packing) -> torch.Tensor:

@@ -461,28 +461,62 @@ def test_fold_all_digits_at_maximum(cuda, params):
     _fold_every_round(params, cts, keys, keys.clone(), False, cuda)
 
 
-@pytest.mark.parametrize("params", [PARAMS, V1_TINY], ids=["v0", "v1"])
-def test_pack_matches_plain(cuda, params):
-    """Kernel G for 3 queries x instances in one launch, each query with
-    its own keys, in both output forms."""
-    rng = np.random.default_rng(32)
-    nq = 3
+def _small(n: int, version: int, t_conv: int):
+    """An n x n pack shape at a small scale (1 instance)."""
+    return params_from_json(json.dumps(
+        {"n": n, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 20, "t_gsw": 8,
+         "t_conv": t_conv, "t_exp_left": 8, "t_exp_right": 8,
+         "instances": 1, "version": version}))
+
+
+# n = 2 versions 0 and 1; n = 4 version 0 (the parameter store's third
+# shape: 5 rows, clusters of 4) and version 1 (three pairs at most fit its
+# shared memory)
+PACK_PARAMS = {"v0": PARAMS, "v1": V1_TINY, "n4_v0": _small(4, 0, 4),
+               "n4_v1": _small(4, 1, 3)}
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("name", list(PACK_PARAMS))
+def test_pack_matches_plain(cuda, name, nq):
+    """Kernel G for nq queries x instances in one launch, each query with
+    its own keys, in its three output modes (NTT, raw, response words) in
+    both its forms (one block, or a cluster of n blocks, a (query, instance,
+    column)) at the pair count pack_tiling derives, against the plain
+    versions; an all-zero scalar ct and the values 0, Q-1 and Q/2 planted."""
+    params = PACK_PARAMS[name]
+    rng = np.random.default_rng(32 + nq)
     nkeys = params.n if params.version == 0 else 2
     keys = [[residues(rng, (params.n + 1, params.t_conv), params)
              for _ in range(nkeys)] for _ in range(nq)]
     v_ct = torch.from_numpy(rng.integers(
         0, params.modulus, (nq, params.instances, params.n * params.n, 2, 1,
                             params.poly_len), dtype=np.int64))
-    v_ct[1, 0, 1] = 0
-    v_ct[0, 0, 0, 0, 0, :3] = torch.tensor([0, params.modulus - 1, 1])
-    want = sj.pack_queries(params, v_ct, keys)
+    v_ct[nq // 2, 0, 1] = 0
+    v_ct[0, 0, 0, :, 0, :3] = torch.tensor([0, params.modulus - 1,
+                                            params.modulus // 2])
+    plan_cpu = ResponseEncodePlan(params, "cpu")
+    want = {"ntt": sj.pack_queries_plain(params, v_ct, keys)}
+    want["raw"] = sj._from_ntt_plain(params, want["ntt"])
+    want["words"] = torch.stack([plan_cpu.encode_plain(p)
+                                 for p in want["raw"]])
+    plan = ResponseEncodePlan(params, cuda)
     dev_keys = [[k.to(cuda) for k in ks] for ks in keys]
+    v_dev = v_ct.to(cuda)
+    for cluster in (1, params.n):
+        for mode in sj.PACK_MODES:
+            got = sj._pack_launch(params, v_dev, dev_keys, mode, plan, cluster)
+            assert torch.equal(got.cpu(), want[mode]), (mode, cluster)
     _build.reset_launches()
-    got = sj.pack_queries(params, v_ct.to(cuda), dev_keys)
-    raw = sj.pack_queries(params, v_ct.to(cuda), dev_keys, raw=True)
-    assert _build.LAUNCHES["pack"] == 2 and _build.LAUNCHES["ntt_forward"] == 0
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(raw.cpu(), sj.pack_queries(params, v_ct, keys, raw=True))
+    assert torch.equal(sj.pack_queries(params, v_dev, dev_keys).cpu(),
+                       want["ntt"])
+    assert torch.equal(sj.pack_queries(params, v_dev, dev_keys, raw=True)
+                       .cpu(), want["raw"])
+    assert torch.equal(sj.pack_encode(params, v_dev, dev_keys, plan).cpu(),
+                       want["words"])
+    assert _build.LAUNCHES["pack"] == 3 and _build.LAUNCHES["encode"] == 0
+    assert _build.LAUNCHES["ntt_forward"] == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("params", [PARAMS, P16], ids=["p256", "p16"])
@@ -549,9 +583,10 @@ def test_full_protocol_on_card(cuda):
         client_j.PublicParameters.deserialize(params_h, pp.serialize(params)),
         client_j.Query.deserialize(params_h, query.serialize(params)), db)
     assert all(counts[k] > 0 for k in ("ntt_forward", "ntt_inverse",
-                                       "matmul_mod", "scan", "encode",
+                                       "matmul_mod", "scan", "pack",
                                        "expansion")), counts
     assert counts["expansion"] == params.g() and counts["expand_round"] == 0
+    assert counts["pack"] == 1 and counts["encode"] == 0, counts
 
 
 @pytest.mark.parametrize("state", ["S1", "S2", "S3"])
@@ -592,7 +627,8 @@ def test_bucket_lifecycle_on_card(cuda, state):
 def test_batched_engine_on_card_equals_cpu(cuda):
     """A 3-query batch (padded to 4 for the scan) from two sessions through
     the bucket on the card equals the CPU plain engine byte for byte, and
-    goes through E, F and G once per round and batch."""
+    goes through E, F and G once per round and batch (G encoding the
+    responses: no launch of D)."""
     params = PARAMS
     rng = np.random.default_rng(12)
     row_len = params.instances * params.n * params.n * params.bytes_per_chunk()
@@ -619,7 +655,7 @@ def test_batched_engine_on_card_equals_cpu(cuda):
             counts = dict(_build.LAUNCHES)
     assert responses[0] == responses[1]
     assert counts["fold_round"] == params.db_dim_2 and counts["pack"] == 1
-    assert counts["encode"] == 3 and counts["scan"] == 1, counts
+    assert counts["encode"] == 0 and counts["scan"] == 1, counts
     assert counts["expansion"] == params.g(), counts     # a round, not a query
     for k in range(3):
         row = np.random.default_rng(items[3 + k]).integers(

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time kernel C (the dense first-dimension scan) or kernel I (the compact
 scan) of sdk_tpu_torch on one CUDA card, on a random index of the 1 GiB
-bucket's full size; or kernels A / A' (the NTT) or F (the fold round) at
-the 1 GiB bucket's read-path shapes.
+bucket's full size; or kernels A / A' (the NTT), F (the fold round) or G
+(pack + encode) at the 1 GiB bucket's read-path shapes.
 
-    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold]
+    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack]
                                     [--root DIR] [--sweep] [--iters N]
                                     [--columns 2,32]
 
@@ -34,7 +34,11 @@ CUDA events over back-to-back calls and with the kernel's device time from
 torch.profiler (the events carry the wrapper's host time at small counts).
 ``--kernel fold`` times F on every round of a fold at NQ = 1 and 16 (per-
 query keys; round r has 16 NQ 2^(5-r) output slots) and the whole fold,
-each round checked against the plain version on every query. Both give the
+each round checked against the plain version on every query. ``--kernel
+pack`` times the pack + encode stage's kernels at NQ = 1 and 16: G in its
+out_words mode, or in a checkout from before it G's raw mode and one D a
+query, checked against the plain pack and encode; ``--sweep`` adds G's
+device time in each of its forms (``pack_tiling``) at NQ = 1-16. All give the
 bounds (bytes at the HBM rate, butterflies at 6 operations at the 32-bit
 peak), the build's registers and spills, F's blocks an SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and, with cuobjdump, the
@@ -188,6 +192,64 @@ def bench_fold(torch, params, dev, gen, args) -> dict:
     return out
 
 
+def bench_pack(torch, params, dev, gen, args) -> dict:
+    """The pack + encode stage's kernels at NQ = 1 and 16 (per-query keys):
+    G in its out_words mode, or, in a checkout from before it, G's raw mode
+    and one D a query; checked against the plain version, timed with CUDA
+    events over the stage and with each kernel's device time. ``--sweep``
+    adds NQ = 2, 4, 8 and 12 and G's device time in each of its forms (one
+    block, or a cluster of n blocks, a (query, instance, column)), each
+    checked."""
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.encode import ResponseEncodePlan
+
+    n, z, inst = params.n, params.poly_len, params.instances
+    plan = ResponseEncodePlan(params, dev)
+    fused = hasattr(sj, "pack_encode")
+    out = {"fused": fused}
+    for nq in (1, 2, 4, 8, 12, 16) if fused and args.sweep else (1, 16):
+        keys = [[torch.stack([torch.randint(
+            0, q, (n + 1, params.t_conv, z), dtype=torch.int32, device=dev,
+            generator=gen) for q in params.moduli], dim=-2)
+            for _ in range(2 if params.version else n)] for _ in range(nq)]
+        v_ct = torch.randint(0, params.modulus, (nq, inst, n * n, 2, 1, z),
+                             dtype=torch.int64, device=dev, generator=gen)
+        if fused:
+            def stage():
+                return sj.pack_encode(params, v_ct, keys, plan)
+        else:
+            def stage():
+                packed = sj.pack_queries(params, v_ct, keys, raw=True)
+                return torch.stack([plan.encode(p) for p in packed])
+        want = torch.stack([plan.encode_plain(p) for p in sj._from_ntt_plain(
+            params, torch.stack([torch.stack([
+                sj.pack_plain(params, v_ct[i, j], keys[i])
+                for j in range(inst)]) for i in range(nq)]))])
+        if not torch.equal(stage(), want):
+            raise AssertionError(f"pack + encode NQ={nq}: kernel != plain")
+        row = {"ms": cuda_ms(stage, args.iters),
+               "pack_device_ms": device_ms(stage, "pack_kernel", args.iters),
+               "encode_device_ms": device_ms(stage, "encode_kernel",
+                                             args.iters)}
+        if fused:
+            row["tiling"] = sj.pack_tiling(params, nq,
+                                           sj._sm_count(dev))._asdict()
+        if fused and args.sweep:
+            row["sweep_device_ms"] = {}
+            for cluster in (1, n):
+                def form():
+                    return sj._pack_launch(params, v_ct, keys, "words", plan,
+                                           cluster)
+                if not torch.equal(form(), want):
+                    raise AssertionError(f"pack NQ={nq} cluster {cluster}: "
+                                         f"kernel != plain")
+                row["sweep_device_ms"][f"cluster{cluster}"] = device_ms(
+                    form, "pack_kernel", args.iters)
+        out[f"nq{nq}"] = row
+        del keys, v_ct, want
+    return out
+
+
 def int_mm_ms(torch, planes, cols: int, iters: int) -> float:
     a = planes.view(-1, 256)
     b = torch.ones((256, cols), dtype=torch.int8, device=planes.device)
@@ -265,11 +327,11 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--columns", default="2,32")
     ap.add_argument("--kernel", default="dense",
-                    help="dense, compact, or ntt / fold / ntt,fold")
+                    help="dense, compact, or a list of ntt, fold, pack")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
     if not (kernels in (["dense"], ["compact"])
-            or set(kernels) <= {"ntt", "fold"}):
+            or set(kernels) <= {"ntt", "fold", "pack"}):
         ap.error(f"--kernel {args.kernel}")
     import torch
 
@@ -290,16 +352,22 @@ def main() -> int:
     params = get_params_from_store(15, 32768)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    if set(kernels) <= {"ntt", "fold"}:
+    if set(kernels) <= {"ntt", "fold", "pack"}:
         out = {"card": card, "root": os.path.abspath(args.root)}
         for k in kernels:
-            stem = "ntt" if k == "ntt" else "fold_round"
-            bench = bench_ntt if k == "ntt" else bench_fold
+            stem = {"ntt": "ntt", "fold": "fold_round", "pack": "pack"}[k]
+            bench = {"ntt": bench_ntt, "fold": bench_fold,
+                     "pack": bench_pack}[k]
             out[k] = bench(torch, params, dev, gen, args)
             out[k].update(kernel_report(_build, stem))
         occ = _build.lib().get("sdk_fold_round_occupancy")
         if "fold" in kernels and occ is not None:
             out["fold"]["blocks_per_sm"] = occ()
+        occ = _build.lib().get("sdk_pack_occupancy")
+        if "pack" in kernels and occ is not None:
+            pairs = sj.pack_tiling(params, 1, sj._sm_count(dev)).pairs
+            out["pack"].update(pairs=pairs, blocks_per_sm=occ(
+                params.n, params.version, pairs))
         print(json.dumps(out))
         return 0
     if args.kernel == "compact":
