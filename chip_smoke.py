@@ -68,17 +68,29 @@ Phases (any failure exits non-zero, with no result line):
 8. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
    the colsum row, with the row-batch select) and L (wrapping u32 products,
    plain and packed) against their plain versions at the checklist path's
-   shapes, on row slices that int64 can hold.
+   shapes, on row slices that int64 can hold. K's tiled form (the hint
+   setup's, one int8 tensor-core product a byte plane of the u32 operand)
+   is checked on a launch whose last row band is ragged, as the whole
+   DB's is, and timed on a 4,224-row sample of H1 beside its int8 and its
+   former int32 bound, torch._int_mm over the same rows x 4n int8 columns
+   (the faster of its two layouts) and its registers and spills; the
+   schedule's HBM bytes by an analytic model go to the log only.
 9. DoublePIR small configs: two byte-element configs and one general
    (p=991) config; hint and answers on the card equal the port's numpy
    scheme word for word, and every planted bit is recovered.
 10. checklist at the production config (1024,6.4,92681,92683,32,464: 2^36
    bloom bits, an 8.59 GB one-byte-per-element DB on the card): keys in,
-   hint setup with the real AES-derived A1/A2, 8-query membership batches
-   through the port's client: members found, a non-member's bits decode
-   to 0, a tampered query does not decode.
+   hint setup with the real AES-derived A1/A2 (5 K launches: H1 over the
+   whole DB and one H2 a digit plane; its wall as a user meets it, then
+   the same rebuild again split into the DB upload, the derive and upload
+   of A1 / A2, H1, the digit-plane glue, the H2 launches and _install_a2,
+   with H1's first and last row bands held against the plain version and
+   the same hint), 8-query membership batches through the
+   port's client (2 K + 2 L launches an answer): members found, a
+   non-member's bits decode to 0, a tampered query does not decode.
 11. device times: A, A' and F at the shapes of 3, E on every round of
-   a dense expansion at NQ = 1 and 16, and G in each mode at NQ = 1 and 16
+   a dense expansion at NQ = 1 and 16, K's tiled form on the H1 sample of
+   8, and G in each mode at NQ = 1 and 16
    beside its latency bound (the dependent transforms of pack's dataflow
    times A's and A''s device time on one polynomial pair), from torch.profiler, last, because
    a profiler session slows the launches that follow it.
@@ -226,6 +238,99 @@ def int_mm_ms(planes: torch.Tensor, cols: int = 8) -> float:
         return None
     finally:
         torch.cuda.empty_cache()
+
+
+def tiled_hbm_bytes(M: int, K: int, N: int, bm: int, bn: int, sms: int,
+                    pair: bool = False) -> int:
+    """HBM bytes of kernel K's tiled schedule by an analytic model, not a
+    reading (block tiles bm x bn, blocks in order n tile fastest): each
+    wave of ``sms`` consecutive blocks (one an SM) reads every row band and
+    column tile it shares once through the L2: the wave's distinct bands of
+    a (and a_hi) and distinct column tiles of b, plus the output once."""
+    mt, nt = -(-M // bm), -(-N // bn)
+    total = 0
+    for w0 in range(0, mt * nt, sms):
+        bands, cols = set(), set()
+        for bid in range(w0, min(mt * nt, w0 + sms)):
+            bands.add(bid // nt)
+            cols.add(bid % nt)
+        total += sum(min(bm, M - b * bm) for b in bands) * K * (1 + pair)
+        total += sum(min(bn, N - c * bn) for c in cols) * K * 4
+    return total + M * N * 4
+
+
+def tiled_ptxas() -> dict:
+    """Registers and spill bytes of kernel K's tiled forms (one plane,
+    pair), from the build's -Xptxas -v report."""
+    from sdk_tpu_torch import _build
+
+    out = {}
+    for name, use in _build.ptxas_usage("dp_dot_i8").items():
+        m = re.search(r"dot_i8_tiled_kernelILb(\d)E", name)
+        if m:
+            out[f"pair{m.group(1)}"] = use
+    return out
+
+
+@contextlib.contextmanager
+def setup_split(st, check_h1=None):
+    """Yields a dict that gets the wall seconds of a checklist bucket's
+    hint rebuild made inside the block, by part: the DB upload (the
+    engine's construction), the AES derive and upload of A1 and A2, H1's
+    one whole-DB launch of kernel K, the four H2 launches, _install_a2,
+    the digit-plane glue (the rest of ``setup``), and H1's and the H2
+    launches' device milliseconds (CUDA events around each call). Every
+    part starts and ends with a synchronize, so a wall taken around the
+    block is not the rebuild's own. ``check_h1(h1, a, b, c=...)``, if
+    given, gets H1 and its operands after H1 is timed (its seconds in
+    ``h1_check_s``, outside every part). The wrappers launch nothing."""
+    cls = st.ChecklistServerTorch
+    patched = {cls: ["__init__", "_stream_derived_to_device", "setup",
+                     "_install_a2"],
+               st: ["dot_i8_u32", "dot_i8pair_u32"]}
+    keys = {"__init__": "db_upload_s", "_stream_derived_to_device":
+            "derive_upload_s", "setup": "setup_s", "_install_a2":
+            "install_a2_s", "dot_i8_u32": "h1_s", "dot_i8pair_u32": "h2_s"}
+    split = {v: 0.0 for v in keys.values()}
+    split["h1_check_s"] = 0.0
+    events: dict[str, list] = {"h1_s": [], "h2_s": []}
+    saved = {(owner, name): getattr(owner, name)
+             for owner, names in patched.items() for name in names}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev = None
+            if key in events:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = fn(*args, **kwargs)
+            if ev is not None:
+                ev[1].record()
+                events[key].append(ev)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t
+            if key == "h1_s" and check_h1 is not None:
+                t = time.perf_counter()
+                check_h1(out, *args, **kwargs)
+                split["h1_check_s"] = time.perf_counter() - t
+            return out
+        return run
+
+    for (owner, name), fn in saved.items():
+        setattr(owner, name, timed(keys[name], fn))
+    try:
+        yield split
+    finally:
+        for (owner, name), fn in saved.items():
+            setattr(owner, name, fn)
+    split["glue_s"] = split["setup_s"] - split["h1_s"] - split["h2_s"] \
+        - split["install_a2_s"] - split["h1_check_s"]
+    for key, evs in events.items():
+        split[key.replace("_s", "_device_ms")] = [a.elapsed_time(b)
+                                                   for a, b in evs]
 
 
 def ptxas_forms(stem: str, params: tuple) -> dict:
@@ -740,6 +845,25 @@ def pack_device_times(params, dev, table: KernelTable,
         f"transforms of a pair: {t_fwd} / {t_inv} ms)")
 
 
+def k_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
+    """Device time of kernel K's tiled form on the setup H1 sample (as
+    phase_doublepir_kernels times it with CUDA events, which also carry the
+    wrapper's add row)."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+    from sdk_tpu_torch.doublepir.params import Params
+
+    params = Params.from_string(config)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    a1 = dev_u32(gen, (params.m, params.n), dev)
+    db_rows = dev_i8(gen, (33 * 128, params.m), dev)
+    table.rows["dp_dot_i8"]["tiled_device_ms"] = device_ms(
+        lambda: st.dot_i8_u32(db_rows, a1, c=128 - params.p // 2),
+        "dot_i8_tiled", 5)
+    del a1, db_rows
+    torch.cuda.empty_cache()
+
+
 def phase_device_times(params, dev, table: KernelTable) -> None:
     """Device times of A, A' and F from torch.profiler on fresh inputs of
     the shapes the kernel phases timed with CUDA events (which carry the
@@ -784,6 +908,7 @@ def phase_device_times(params, dev, table: KernelTable) -> None:
         del cts, keys
     pack_device_times(params, dev, table, gen)
     torch.cuda.empty_cache()
+    k_device_times(dev, table)
     row = table.rows["fold_round"]
     log("[device times] torch.profiler: A 8192 polys "
         f"{table.rows['ntt_forward']['device_ms']} ms, A' "
@@ -2168,24 +2293,47 @@ def phase_doublepir_kernels(dev, table: KernelTable,
     name = "dp_dot_i8"
 
     # setup: H1 = DB @ A1 + (128 - p/2) colsum(A1), and one H2 digit plane
-    # (checked on 128 rows; timed on 33 row tiles x 8 column tiles, two
-    # blocks for each of the 132 SMs)
+    # (K past one s32 run of 65,536; H1 checked on a launch of 4,169 rows,
+    # whose last row band holds 9 rows as the whole DB's does, at its first
+    # 128 and last 73 rows; timed on a 4,224-row sample: 66 row bands of 64
+    # x 8 column tiles of 128, four blocks for each of the 132 SMs)
     a1 = dev_u32(gen, (m, n), dev)
     trows = 33 * 128
     db_rows = dev_i8(gen, (trows, m), dev)
     c1 = 128 - p // 2
-    table.check(name, "setup H1, 128 DB rows", max_abs_err(
-        st.dot_i8_u32(db_rows[:128], a1, c=c1),
-        st._dot_plain(db_rows[:128], None, a1, c1, False)))
-    tiled_ms = cuda_ms(lambda: st.dot_i8_u32(db_rows, a1, c=c1), 3)
-    tiled_b = bound(nbytes(db_rows, a1) + 4 * trows * n, 2 * trows * m * n,
-                    INT32_OPS_PER_S)
+    ragged = trows - 55
+    h1 = st.dot_i8_u32(db_rows[:ragged], a1, c=c1)
+    for r0, r1 in ((0, 128), (ragged - 73, ragged)):
+        table.check(name, f"setup H1, rows {r0}..{r1} of a {ragged}-row "
+                    "launch", max_abs_err(h1[r0:r1], st._dot_plain(
+                        db_rows[r0:r1], None, a1, c1, False)))
+    del h1
+    tiled_ms = cuda_ms(lambda: st.dot_i8_u32(db_rows, a1, c=c1), 5)
+    tiled_bytes = nbytes(db_rows, a1) + 4 * trows * n
+    # four byte planes of A1 on the int8 tensor cores; the CUDA-core form's
+    # one 32-bit multiply-add a product beside it
+    tiled_b = bound(tiled_bytes, 4 * 2 * trows * m * n, INT8_OPS_PER_S)
+    tiled_b32 = bound(tiled_bytes, 2 * trows * m * n, INT32_OPS_PER_S)
+    # the library yardstick: torch._int_mm over the same int8 rows (with
+    # their row padding) x an (m, 4n) int8 operand, the four planes'
+    # tensor-core work, its second operand row-major and column-major (the
+    # layout cuBLASLt's int8 kernels take as they are); the faster counts.
+    # The port never calls it
+    stride = db_rows.stride(0)
+    whole = torch.as_strided(db_rows, (trows, stride), (stride, 1))
+    ones = torch.ones((stride, 4 * n), dtype=torch.int8, device=dev)
+    lib_layouts = {"row_major": cuda_ms(lambda: torch._int_mm(whole, ones), 5)}
+    ones = ones.t().contiguous().t()
+    lib_layouts["col_major"] = cuda_ms(lambda: torch._int_mm(whole, ones), 5)
+    tiled_lib = min(lib_layouts.values())
+    del whole, ones
     a2 = dev_u32(gen, (l, n), dev)
     lo, hi = dev_i8(gen, (128, l), dev, 0, 128), dev_i8(gen, (128, l), dev, 0, 4)
     table.check(name, "setup H2 pair, 128 digit rows", max_abs_err(
         st.dot_i8pair_u32(lo, hi, a2, c=-(p // 2)),
         st._dot_plain(lo, hi, a2, -(p // 2), False)))
     del a1, a2, lo, hi, db_rows
+    torch.cuda.empty_cache()
 
     # answer: the hint matvec a_2 (pair, 8 columns) and the level-1 pass
     # with its row-batch select, nq = 8 and 1
@@ -2208,7 +2356,11 @@ def phase_doublepir_kernels(dev, table: KernelTable,
         f"answer level 1 with the row-batch select: ({rows}, {m}) int8 rows "
         f"of the DB @ ({m}, 8) u32, one column per row batch (ms, plain_ms, "
         f"bound_ms, library_ms); the whole DB in level1_full_*; the tiled "
-        f"form (setup H1, {trows} rows x {n} columns) in tiled_*; library_ms: "
+        f"form (setup H1 on a {trows}-row sample x {n} columns: one int8 "
+        f"tensor-core product a byte plane of A1) in tiled_*, its bound "
+        f"over 4 planes at the int8 peak and the CUDA-core form's at the "
+        f"32-bit peak (tiled_int32_*), tiled_library_ms torch._int_mm over "
+        f"the sample's int8 rows x ({m}, {4 * n}) int8; library_ms: "
         f"torch._int_mm over the same int8 bytes x 8 int8 columns (no 32-bit "
         f"operand, no select)",
         cuda_ms(lambda: st.dot_i8_select(db_rows, q1, c=128), 20),
@@ -2216,7 +2368,17 @@ def phase_doublepir_kernels(dev, table: KernelTable,
         bound(nbytes(db_rows, q1) + 4 * rows, 2 * rows * m, INT32_OPS_PER_S),
         int_mm_ms(db_rows.contiguous()),
         tiled_ms=tiled_ms, tiled_bound_ms=tiled_b["bound_ms"],
-        tiled_bound_by=tiled_b["bound_by"])
+        tiled_bound_by=tiled_b["bound_by"],
+        tiled_int32_bound_ms=tiled_b32["bound_ms"],
+        tiled_int32_bound_by=tiled_b32["bound_by"],
+        tiled_library_ms=tiled_lib, tiled_ptxas=tiled_ptxas())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[K tiled] sample {tiled_ms:.4f} ms against its int8 bound "
+        f"{tiled_b['bound_ms']:.4f}; torch._int_mm {lib_layouts} ms; the "
+        f"schedule's HBM bytes by an analytic model (not measured; a wave of "
+        f"{sms} blocks reads its row bands and column tiles once): sample "
+        f"{tiled_hbm_bytes(trows, m, n, 64, 128, sms)}, whole H1 "
+        f"{tiled_hbm_bytes(l, m, n, 64, 128, sms)}")
     del db_rows, q1
 
     # L: msg0 = a_1t (4 x l3, packed) @ A2, h_2 = a_1t @ q2, and the general
@@ -2385,6 +2547,7 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
                          log2m: int = 36, config: str = CHECKLIST,
                          n_keys: int = 300) -> dict:
     """The production checklist bucket, end to end on the card."""
+    from sdk_tpu_torch.clients.bloom import bloom_hash
     from sdk_tpu_torch.doublepir import kernels as dk, server_torch as st
     from sdk_tpu_torch.doublepir.serializer import serialize_states
     from sdk_tpu_torch.server.doublepir_server import DoublePirKvServerTorch
@@ -2397,31 +2560,62 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
                              f"{srv.params.to_string()} on {srv.device}")
     members = [f"breached-password-{i:04d}" for i in range(n_keys)]
     srv.add_keys(members)
+    # the hint setup as a user meets it: no wrapper, no added synchronize
     t = time.perf_counter()
     hint_bytes, setup_counts = launches.run(srv.get_hint)
     setup_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one H1 launch over the whole DB and one H2 launch a digit plane
+    k_setup = 1 + srv.params.delta()
+    if srv._engine is None or setup_counts["dp_dot_i8"] != k_setup:
+        raise AssertionError(f"setup did not run the device engine's "
+                             f"{k_setup} K launches: {setup_counts}")
+
+    # the same rebuild again (a write of a bit already set: the same
+    # filter), split into its parts, with H1's first and last row bands
+    # (the last holds 9 rows) held against the plain version
+    def check_h1(h1, a, b, c=0):
+        rows = a.shape[0]
+        for r0, r1 in ((0, 64), (rows - 73, rows)):
+            table.check("dp_dot_i8", f"setup H1 over the whole DB, rows "
+                        f"{r0}..{r1}", max_abs_err(h1[r0:r1], st._dot_plain(
+                            a[r0:r1], None, b, c, False)))
+
+    srv.set_bit(bloom_hash(members[0], 0, log2m))
+    t = time.perf_counter()
+    with setup_split(st, check_h1) as split:
+        hint_again, counts_again = launches.run(srv.get_hint)
+    split["wall_s"] = time.perf_counter() - t
+    split["other_s"] = split["wall_s"] - split["db_upload_s"] \
+        - split["derive_upload_s"] - split["setup_s"]
+    if counts_again["dp_dot_i8"] != k_setup or hint_again != hint_bytes:
+        raise AssertionError(f"the rebuild of the same filter: "
+                             f"{counts_again}, same hint "
+                             f"{hint_again == hint_bytes}")
     eng = srv._engine
-    if eng is None or setup_counts["dp_dot_i8"] <= 0:
-        raise AssertionError(f"setup did not run the device engine: "
-                             f"{setup_counts}")
     out = {"config": config, "num_entries": 1 << log2m,
            "db": f"bloom bits of {n_keys} keys in a host bit array, uploaded in "
                  "chunks, byte ^ 0x80 on the card",
            "db_bytes": eng.params.l * eng.params.m,
-           "setup_wall_s": setup_s, "hint_bytes": len(hint_bytes),
+           "setup_wall_s": setup_s, "setup_split": split,
+           "hint_bytes": len(hint_bytes),
            "setup_launches": setup_counts,
            "memory_allocated_after_setup": torch.cuda.memory_allocated(dev),
-           "max_memory_allocated_setup": torch.cuda.max_memory_allocated(dev)}
+           "max_memory_allocated_setup": peak}
     log(f"[checklist] {config}: 2^{log2m} entries, {out['db_bytes']} DB "
         f"bytes on the card; setup with the AES-derived A1/A2 in "
-        f"{setup_s:.1f} s; hint {len(hint_bytes)} bytes; memory_allocated "
-        f"{out['memory_allocated_after_setup']}, peak "
-        f"{out['max_memory_allocated_setup']}")
+        f"{setup_s:.2f} s; {k_setup} K launches; hint {len(hint_bytes)} "
+        f"bytes; memory_allocated {out['memory_allocated_after_setup']}, "
+        f"peak {peak}. The same rebuild split, each part synchronized: "
+        f"{split['wall_s']:.2f} s = DB upload {split['db_upload_s']:.2f}, "
+        f"derive and upload {split['derive_upload_s']:.2f}, H1 "
+        f"{split['h1_s']:.3f}, glue {split['glue_s']:.3f}, "
+        f"{len(split['h2_device_ms'])} H2 {split['h2_s']:.3f}, _install_a2 "
+        f"{split['install_a2_s']:.3f}, H1's check {split['h1_check_s']:.2f}, "
+        f"other {split['other_s']:.2f}")
 
     # a member whose 8 bloom indices fall into at least 5 of the 8 row
     # batches: a client declares membership on >= 5 planned bits
-    from sdk_tpu_torch.clients.bloom import bloom_hash
-
     bs = eng.params.l // 8
     member = next(k for k in members if len({
         min(bloom_hash(k, i, log2m) // 8 // eng.params.m // bs, 7)
@@ -2433,6 +2627,8 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
     raw, counts = launches.run(lambda: srv.answer(qb))
     if counts["dp_dot_i8"] != 2 or counts["dp_matmul_u32"] != 2:
         raise AssertionError(f"an answer is 2 K + 2 L launches: {counts}")
+    table.rows["dp_dot_i8"].update(launches_per_answer=counts["dp_dot_i8"],
+                                   launches_per_setup=k_setup)
     got = decode_plan(client, raw, datas, plan)
     if planned < 5 or got != [1] * planned:
         raise AssertionError(f"member: {planned} planned bits decoded {got}")

@@ -63,6 +63,9 @@ _SIGNATURES = {
                                           _ULL, _U, _U, _ULL, _P)),
     "sdk_dp_dot_i8": ("dp_dot_i8", (_P, _P, _LL, _P, _I, _LL, _P, _P, _LL, _I,
                                     _LL, _I, _P)),
+    "sdk_dp_dot_i8_tiled": ("dp_dot_i8", (_P, _P, _LL, _P, _LL, _I, _P, _P,
+                                          _LL, _I, _P)),
+    "sdk_dp_mma_wrap_probe": ("dp_dot_i8", (_P, _I, _P)),
     "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
                                             _P)),
     "sdk_fold_round": ("fold_round", (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,

@@ -6,14 +6,11 @@
 // _dot_i8pair_u32, with the `c * colsum(b)` rows of :248 and :457 and the
 // diagonal row-batch select of :458. The JAX program splits b into five
 // 7-bit limb planes because the MXU multiplies int8 only, and needs
-// 128 * 127 * K < 2^31 for its int32 partial sums. A CUDA core multiplies 32
-// bits natively: acc += (uint32_t)(int32_t)a * b wraps mod 2^32 and is exact
-// for any K, with one IMAD per product (dp4a over 7-bit limbs would take
-// 5/4 dp4a per product), so there is no limb, no bound on K and no int32
-// partial product tensor.
+// 128 * 127 * K < 2^31 for its int32 partial sums. Here no form has a bound
+// on K.
 //
-// The pair form takes a 10-bit digit operand stored as two int8 planes,
-// a = a_lo + (a_hi << 7), recombined in registers.
+// The pair form takes a digit operand below 512 stored as two int8 planes,
+// a = a_lo + (a_hi << 7) with a_lo in [0, 128) and a_hi in [0, 4).
 //
 // Two kernels, chosen by N:
 //
@@ -21,21 +18,63 @@
 //   N columns; its 256 threads stride over K four bytes at a time, so a warp
 //   reads 128 contiguous bytes of each row, keep 8 x N sums in registers and
 //   reduce them with shuffles at the end; with several columns the 4 x N
-//   words of b that go with them are read with 16-byte loads. With batches
-//   > 1 the rows are cut into `nbatch` row batches (the last takes the remainder)
-//   and batch q multiplies only its own column, given as row q of a
-//   transposed (nbatch, K) operand: the level-1 pass of the answer computes,
-//   per row, only the column its batch selects, in one pass over the DB.
-//   Bound by bytes: the 8.59 GB DB is read once; one PRMT and one IMAD per
-//   byte stay under it.
+//   words of b that go with them are read with 16-byte loads. A CUDA core
+//   multiplies 32 bits natively: acc += (uint32_t)(int32_t)a * b wraps mod
+//   2^32, one IMAD per product. With batches > 1 the rows are cut into
+//   `nbatch` row batches (the last takes the remainder) and batch q
+//   multiplies only its own column, given as row q of a transposed
+//   (nbatch, K) operand: the level-1 pass of the answer computes, per row,
+//   only the column its batch selects, in one pass over the DB. Bound by
+//   bytes: the 8.59 GB DB is read once; one PRMT and one IMAD per byte stay
+//   under it.
 //
-// * tiled (N > 8: the hint setup, DB @ A1 and digits @ A2). A 128 x 128
-//   output tile per block, K in steps of 32 through shared memory (`a`
-//   sign-extended to 32 bits on the way in), 8 x 8 sums per thread. Bound by
-//   operations: M * K * N 32-bit multiply-adds on the CUDA cores.
+// * tiled (N > 8: the hint setup, DB @ A1 and digits @ A2; entry
+//   sdk_dp_dot_i8_tiled). On the int8 tensor cores, as the JAX program runs
+//   on the MXU, but with byte planes of the u32 operand in place of its
+//   7-bit limbs: b = sum_j 2^(8j) b_j, b_j in [0, 256), and
+//       out = sum_j (a @ b_j) << 8j + add     (mod 2^32),
+//   one mma.sync.m16n8k32 s8 x u8 -> s32 product a plane. The pair form
+//   writes a = a' + 256 x with a' = a mod 256 as s8 (the bytes a_lo |
+//   (a_hi & 1) << 7) and x = (a_hi + 1) >> 1 in [0, 2]; x @ b_j lands at
+//   shift 8(j + 1), so it goes into plane j + 1's accumulator and x @ b_3
+//   (shift 32) vanishes: 7 products where two planes of `a` would take 8.
+//   Bound by operations: 4 x 2MNK int8 operations (35.6 ms at 1,979 TOP/s
+//   for the production H1, M 92,681, K 92,683, N 1,024), then by A1's
+//   re-reads. What the design does about each:
+//   - No prep pass for b: a B fragment register of m16n8k32 holds 4
+//     neighbouring k of one column, so the four u32 words (k .. k+3, n) of
+//     b hold exactly the four planes' registers; 8 PRMTs transpose them.
+//     b is staged as it is, as u32 words, with 16-byte cp.async copies.
+//   - k order: lane t's A registers a0 / a2 and B registers b0 / b1 take
+//     k 8t .. 8t+3 / 8t+4 .. 8t+7 of a k32 step (the MMA's sum does not
+//     care which k sits in which slot, as long as A and B agree), so a lane
+//     reads each row's A bytes with one 8-byte load.
+//   - Shared memory: A as [k32 step][BM rows][32 bytes], conflict-free for
+//     the 8-byte fragment loads; b as [k][BN words] with each 16-byte chunk
+//     c of row k stored at chunk c ^ 2((k >> 3) & 3), so the 32 lanes'
+//     word loads of one k hit 32 banks.
+//   - Exact for any K: one k adds at most 128 * 255 = 32,640 in size to an
+//     accumulator in both forms (a' * b_(j+1) + x * b_j in the pair form),
+//     so an s32 accumulator is exact over 65,536 k. The
+//     accumulators restart every 2,048 k32 steps and each run is folded
+//     into the output with wrapping u32 adds (the first fold stores add +
+//     the run, the later ones add to what the block stored). Nothing
+//     relies on the MMA's s32 overflow.
+//   - Registers: a warp tile is 64 rows x 16 u32 columns, 4 m16 x 2 n8
+//     tiles x 4 planes x 4 s32 = 128 accumulator registers; 8 warps side
+//     by side along N make a 64 x 128 block tile, one block an SM, two
+//     cp.async stages of 128 k (a sweep of 128 x 64 and 256 x 32 block
+//     tiles and of 3 and 4 stages found none faster).
+//   - A1's re-reads: each block reads its 64 rows of `a` and 128 columns
+//     of b over all K. Blocks go in order n tile fastest, so the blocks
+//     that run together share the DB's rows and b's k-slices through the
+//     50 MB L2 (an analytic model of the schedule's HBM bytes:
+//     chip_smoke.tiled_hbm_bytes).
 //
 // Rows of `a` start on 4-byte boundaries (lda % 4 == 0, lda >= K rounded up
-// to 4); bytes past K in a row are read and multiplied by zero.
+// to 4) for the rows kernel, on 16-byte boundaries (lda % 16 == 0, lda >= K
+// rounded up to 16) for the tiled one; bytes past K in a row are read and
+// multiplied by zero.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -168,93 +207,317 @@ dot_i8_rows_kernel(const int8_t* __restrict__ a_lo,
   }
 }
 
-constexpr int BM = 128, BN = 128, BK = 32;
+// ---- the tiled form, on the int8 tensor cores ----
 
-// out[m, n] = sum_k a[m, k] * b[k, n] + add[n]; one 128 x 128 tile a block.
-// Thread (ty, tx) of 16 x 16 holds rows {ty*4 .. +3, 64 + ty*4 .. +3} and
-// columns {tx*4 .. +3, 64 + tx*4 .. +3}: each shared-memory read is one
-// 16-byte load, and a quarter warp reads 128 contiguous bytes of b.
+constexpr int kTiledThreads = 256;   // 8 warps, side by side along N
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kMT = 4;               // m16 tiles of a warp (64 rows)
+constexpr int kNT = 2;               // n8 tiles of a warp (16 u32 columns)
+constexpr int BM = 16 * kMT;         // block tile: 64 rows
+constexpr int BN = 8 * kNT * kTiledWarps;   // x 128 u32 columns
+constexpr int kStepK = 32;           // k of one MMA step
+constexpr int kStageSteps = 4;       // k32 steps of one pipeline stage
+constexpr int kStageK = kStepK * kStageSteps;
+constexpr int kStages = 2;           // cp.async stages
+constexpr int kRestartSteps = 2048;  // k32 steps between restarts (65,536 k)
+static_assert(kRestartSteps % kStageSteps == 0, "restart on a stage edge");
+static_assert(BN / 4 >= 8, "the chunk swizzle needs 8 chunks a row");
+
+struct TiledArgs {
+  const int8_t* a_lo;
+  const int8_t* a_hi;
+  long long lda;       // bytes between rows of a_lo / a_hi
+  const uint32_t* b;
+  long long ldb;       // words between rows of b (a multiple of 4, >= N)
+  const uint32_t* add;
+  uint32_t* out;       // (M, N), row stride N
+  long long M;
+  int N, K;
+  int n_tiles;         // ceil(N / BN)
+};
+
+// Shared memory of one pipeline stage: A (and A_hi) as [k32 step][BM][32
+// bytes], then b as [kStageK][BN] words.
+constexpr int kABytes = BM * kStageK;
 template <bool PAIR>
-__global__ void __launch_bounds__(kThreads)
-dot_i8_tiled_kernel(const int8_t* __restrict__ a_lo,
-                    const int8_t* __restrict__ a_hi, long long lda,
-                    const uint32_t* __restrict__ b, int N,
-                    const uint32_t* __restrict__ add,
-                    uint32_t* __restrict__ out, long long M, int K) {
-  __shared__ __align__(16) int32_t a_s[BK][BM];
-  __shared__ __align__(16) uint32_t b_s[BK][BN];
+constexpr int kStageBytes = (PAIR ? 2 : 1) * kABytes + kStageK * BN * 4;
+
+// The chunk of row k of the b stage that holds chunk c: c ^ 2((k >> 3) & 3).
+__device__ __forceinline__ int b_chunk(int k, int c) {
+  return c ^ (((k >> 3) & 3) << 1);
+}
+
+// 16-byte asynchronous copy global -> shared (L2 only); src_bytes 0 writes
+// zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N groups of copies are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += A (16 x 32 s8, row-major) x B (32 x 8 u8, column-major), in s32.
+__device__ __forceinline__ void mma_s8u8(int32_t (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four words w_i = bytes (w_i0 .. w_i3) -> four plane registers p_j =
+// (w_0j, w_1j, w_2j, w_3j): byte j of four neighbouring k, in k order.
+__device__ __forceinline__ void byte_planes(uint32_t w0, uint32_t w1,
+                                            uint32_t w2, uint32_t w3,
+                                            uint32_t (&p)[4]) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140);   // w00 w10 w01 w11
+  const uint32_t t1 = __byte_perm(w0, w1, 0x7362);   // w02 w12 w03 w13
+  const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+  p[0] = __byte_perm(t0, t2, 0x5410);
+  p[1] = __byte_perm(t0, t2, 0x7632);
+  p[2] = __byte_perm(t1, t3, 0x5410);
+  p[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// Fold the accumulators of one run into the block's outputs: out = add +
+// run at the first fold, out += run after it; every sum wraps mod 2^32.
+// Lane (g, t) holds rows g, g + 8 and columns 2t, 2t + 1 of each tile.
+__device__ __forceinline__ void fold_run(const int32_t (&acc)[kMT][kNT][4][4],
+                                         const TiledArgs& p, long long m0,
+                                         int n0, bool first) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool pairs = (p.N & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + 16 * i + g + 8 * h;
+      if (m >= p.M) continue;
+      uint32_t* row = p.out + m * p.N;
+#pragma unroll
+      for (int u = 0; u < kNT; ++u) {
+        const int n = n0 + 8 * u + 2 * t;
+        uint32_t v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[e] += static_cast<uint32_t>(acc[i][u][j][2 * h + e]) << (8 * j);
+        }
+        if (pairs && n + 1 < p.N) {
+          uint2* dst = reinterpret_cast<uint2*>(row + n);
+          uint2 base;
+          if (first) {
+            base = p.add ? make_uint2(p.add[n], p.add[n + 1]) : make_uint2(0, 0);
+          } else {
+            base = *dst;
+          }
+          *dst = make_uint2(base.x + v[0], base.y + v[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (n + e < p.N) {
+              const uint32_t base =
+                  first ? (p.add ? p.add[n + e] : 0u) : row[n + e];
+              row[n + e] = base + v[e];
+            }
+        }
+      }
+    }
+}
+
+// out[m, n] = sum_k a[m, k] * b[k, n] + add[n] for one BM x BN tile a block.
+template <bool PAIR>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+dot_i8_tiled_kernel(const TiledArgs p) {
+  constexpr int kStage = kStageBytes<PAIR>;
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  // block -> (m tile, n tile), n tiles fastest
+  const long long m0 = static_cast<long long>(blockIdx.x / p.n_tiles) * BM;
+  const int n0 = static_cast<int>(blockIdx.x % p.n_tiles) * BN;
+
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const long long m0 = static_cast<long long>(blockIdx.y) * BM;
-  const int n0 = blockIdx.x * BN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nw = warp * 8 * kNT;       // the warp's columns in the tile
 
-  uint32_t acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+  // the copies of one stage (a_lo's and a_hi's BM rows x kStageK bytes, b's
+  // kStageK rows x BN words; rows past M, k past K and columns past ldb
+  // read as zeros): a thread's A pieces lie in one 16-byte column of the
+  // stage, kAR rows apart, its b chunks in one chunk column, kBR rows apart
+  constexpr int kP = kStageK / 16;          // A pieces a row
+  constexpr int kAR = kTiledThreads / kP;
+  constexpr int kBC = BN / 4;               // b chunks a row
+  constexpr int kBR = kTiledThreads / kBC;
+  static_assert(BM % kAR == 0 && kStageK % kBR == 0, "whole copy rounds");
+  const int a_row = tid / kP, a_piece = tid % kP;
+  const int b_row = tid / kBC, b_c = tid % kBC;
+  const long long a_off = (m0 + a_row) * p.lda + 16 * a_piece;
+  const int a_dst = ((a_piece >> 1) * BM + a_row) * kStepK + 16 * (a_piece & 1);
+  const bool b_col_ok = n0 + 4 * b_c < p.ldb;
+  const uint32_t* b_src = p.b + b_row * p.ldb + n0 + 4 * b_c;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // a: 128 rows x 8 words; consecutive threads take consecutive rows, so
-    // the transposed shared-memory stores do not collide
-    for (int i = tid; i < BM * (BK / 4); i += kThreads) {
-      const int r = i % BM, wq = i / BM;
-      const int k = k0 + wq * 4;
-      int32_t v[4] = {0, 0, 0, 0};
-      if (m0 + r < M && k < K) load4<PAIR>(a_lo, a_hi, (m0 + r) * lda + k, v);
+  auto load_stage = [&](int slot, int kt) {
+    uint8_t* st = smem + static_cast<size_t>(slot) * kStage;
+    const int k0 = kt * kStageK;
+    const bool a_k_ok = k0 + 16 * a_piece < p.K;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) a_s[wq * 4 + j][r] = k + j < K ? v[j] : 0;
-    }
-    for (int i = tid; i < BK * BN; i += kThreads) {
-      const int kk = i / BN, n = i % BN;
-      b_s[kk][n] = (k0 + kk < K && n0 + n < N)
-                       ? b[static_cast<long long>(k0 + kk) * N + n0 + n] : 0u;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const int4 a0 = *reinterpret_cast<const int4*>(&a_s[kk][ty * 4]);
-      const int4 a1 = *reinterpret_cast<const int4*>(&a_s[kk][64 + ty * 4]);
-      const uint4 b0 = *reinterpret_cast<const uint4*>(&b_s[kk][tx * 4]);
-      const uint4 b1 = *reinterpret_cast<const uint4*>(&b_s[kk][64 + tx * 4]);
-      const uint32_t av[8] = {
-          static_cast<uint32_t>(a0.x), static_cast<uint32_t>(a0.y),
-          static_cast<uint32_t>(a0.z), static_cast<uint32_t>(a0.w),
-          static_cast<uint32_t>(a1.x), static_cast<uint32_t>(a1.y),
-          static_cast<uint32_t>(a1.z), static_cast<uint32_t>(a1.w)};
-      const uint32_t bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int plane = 0; plane < (PAIR ? 2 : 1); ++plane) {
+      const int8_t* src = (plane ? p.a_hi : p.a_lo) + a_off + k0;
+      uint8_t* dst = st + plane * kABytes + a_dst;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bw[j];
+      for (int q = 0; q < BM / kAR; ++q) {
+        const bool ok = a_k_ok && m0 + a_row + q * kAR < p.M;
+        cp_async16(dst + q * kAR * kStepK, ok ? src : p.a_lo, ok ? 16 : 0);
+        src += kAR * p.lda;
+      }
     }
-    __syncthreads();
+    uint32_t* bs =
+        reinterpret_cast<uint32_t*>(st + (PAIR ? 2 : 1) * kABytes);
+    const uint32_t* src = b_src + k0 * p.ldb;
+#pragma unroll
+    for (int q = 0; q < kStageK / kBR; ++q) {
+      const int kk = b_row + q * kBR;
+      const bool ok = b_col_ok && k0 + kk < p.K;
+      cp_async16(bs + kk * BN + 4 * b_chunk(kk, b_c), ok ? src : p.b,
+                 ok ? 16 : 0);
+      src += kBR * p.ldb;
+    }
+  };
+
+  // fragment offsets in a stage: lane (g, t) reads the b words k = 8t .. 8t+7
+  // (+ 32 a step) of column nw + 8u + g, whose chunk row k swizzles by
+  // 2((k >> 3) & 3) = 2t, and the A rows g (+ 16i, + 8) at byte 8t
+  int b_ofs[kNT];
+#pragma unroll
+  for (int u = 0; u < kNT; ++u) {
+    const int n = nw + 8 * u + g;
+    b_ofs[u] = 8 * t * BN + 4 * ((n >> 2) ^ (t << 1)) + (n & 3);
   }
+  const int a_ofs = g * kStepK + 8 * t;
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) out[m * N + n] = acc[i][j] + (add ? add[n] : 0u);
-    }
+  int32_t acc[kMT][kNT][4][4];
+  const int n_kt = (p.K + kStageK - 1) / kStageK;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_stage(s, s);
+    cp_async_commit();
   }
+  // runs of kRestartSteps k32 steps, each folded into the outputs
+  constexpr int kRunStages = kRestartSteps / kStageSteps;
+  for (int kt0 = 0; kt0 < n_kt; kt0 += kRunStages) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int u = 0; u < kNT; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][u][j][e] = 0;
+    const int kt1 = min(n_kt, kt0 + kRunStages);
+    for (int kt = kt0; kt < kt1; ++kt) {
+      cp_async_wait<kStages - 2>();   // stage kt has landed
+      __syncthreads();                // and every warp is done with kt - 1
+      const int nxt = kt + kStages - 1;
+      if (nxt < n_kt) load_stage(nxt % kStages, nxt);
+      cp_async_commit();
+
+      const uint8_t* st = smem + static_cast<size_t>(kt % kStages) * kStage;
+      const uint32_t* bs =
+          reinterpret_cast<const uint32_t*>(st + (PAIR ? 2 : 1) * kABytes);
+#pragma unroll
+      for (int ks = 0; ks < kStageSteps; ++ks) {
+        // the four planes' B registers of the warp's n8 tiles: lane (g, t)
+        // takes column g, k 8t .. 8t+3 (b0) and 8t+4 .. 8t+7 (b1)
+        uint32_t bp[kNT][4][2];
+#pragma unroll
+        for (int u = 0; u < kNT; ++u) {
+          uint32_t w[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) w[i] = bs[b_ofs[u] + (ks * kStepK + i) * BN];
+          uint32_t lo[4], hi[4];
+          byte_planes(w[0], w[1], w[2], w[3], lo);
+          byte_planes(w[4], w[5], w[6], w[7], hi);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bp[u][j][0] = lo[j];
+            bp[u][j][1] = hi[j];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          // rows g and g + 8 of m16 tile i, k 8t .. 8t+7: registers a0 / a2
+          // and a1 / a3
+          const uint8_t* ap = st + ks * BM * kStepK + a_ofs + 16 * i * kStepK;
+          const uint2 r0 = *reinterpret_cast<const uint2*>(ap);
+          const uint2 r1 = *reinterpret_cast<const uint2*>(ap + 8 * kStepK);
+          uint32_t a[4] = {r0.x, r1.x, r0.y, r1.y};
+          if constexpr (PAIR) {
+            const uint2 h0 = *reinterpret_cast<const uint2*>(ap + kABytes);
+            const uint2 h1 =
+                *reinterpret_cast<const uint2*>(ap + kABytes + 8 * kStepK);
+            const uint32_t hw[4] = {h0.x, h1.x, h0.y, h1.y};
+            uint32_t x[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              // a = lo + 128 hi = a' + 256 x: a' = a mod 256 as s8, x in [0, 2]
+              a[e] |= (hw[e] & 0x01010101u) << 7;
+              x[e] = ((hw[e] + 0x01010101u) >> 1) & 0x7F7F7F7Fu;
+            }
+#pragma unroll
+            for (int u = 0; u < kNT; ++u)
+#pragma unroll
+              for (int j = 0; j < 3; ++j)
+                mma_s8u8(acc[i][u][j + 1], x, bp[u][j][0], bp[u][j][1]);
+          }
+#pragma unroll
+          for (int u = 0; u < kNT; ++u)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_s8u8(acc[i][u][j], a, bp[u][j][0], bp[u][j][1]);
+        }
+      }
+    }
+    fold_run(acc, p, m0, n0 + nw, kt0 == 0);
+  }
+  cp_async_wait<0>();
 }
 
 template <bool PAIR>
-cudaError_t launch(const int8_t* a_lo, const int8_t* a_hi, long long lda,
-                   const uint32_t* b, int N, long long b_batch_stride,
-                   const uint32_t* add, uint32_t* out, long long M, int K,
-                   long long rows_per_batch, int nbatch, cudaStream_t stream) {
-  if (N > 8) {
-    if (nbatch != 1) return cudaErrorInvalidValue;
-    const dim3 grid((N + BN - 1) / BN, static_cast<unsigned>((M + BM - 1) / BM));
-    dot_i8_tiled_kernel<PAIR><<<grid, kThreads, 0, stream>>>(
-        a_lo, a_hi, lda, b, N, add, out, M, K);
-    return cudaGetLastError();
-  }
+cudaError_t launch_tiled(TiledArgs p, cudaStream_t stream) {
+  constexpr size_t smem = static_cast<size_t>(kStages) * kStageBytes<PAIR>;
+  p.n_tiles = (p.N + BN - 1) / BN;
+  const long long blocks = (p.M + BM - 1) / BM * p.n_tiles;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dot_i8_tiled_kernel<PAIR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dot_i8_tiled_kernel<PAIR>
+      <<<static_cast<unsigned>(blocks), kTiledThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool PAIR>
+cudaError_t launch_rows(const int8_t* a_lo, const int8_t* a_hi, long long lda,
+                        const uint32_t* b, int N, long long b_batch_stride,
+                        const uint32_t* add, uint32_t* out, long long M, int K,
+                        long long rows_per_batch, int nbatch,
+                        cudaStream_t stream) {
   // the last batch also takes the M - nbatch * rows_per_batch rows left over
   const long long longest = M - (nbatch - 1) * rows_per_batch;
   const dim3 grid(static_cast<unsigned>((longest + kRows - 1) / kRows), nbatch);
@@ -272,18 +535,19 @@ cudaError_t launch(const int8_t* a_lo, const int8_t* a_hi, long long lda,
 
 }  // namespace
 
-// a_lo, a_hi: (M, K) int8 with row stride lda bytes (a_hi null: one plane;
-// else a = a_lo + (a_hi << 7)); b: nbatch operands of (K, N) uint32,
-// b_batch_stride words apart; add: (nbatch * N) uint32 or null; out: (M, N)
-// uint32. nbatch == 1: out = a @ b + add. nbatch > 1 (N <= 8 only): rows
-// [q * rows_per_batch, ...) use operand q, the last batch to row M.
+// The rows form (N <= 8). a_lo, a_hi: (M, K) int8 with row stride lda bytes
+// (a_hi null: one plane; else a = a_lo + (a_hi << 7)); b: nbatch operands
+// of (K, N) uint32, b_batch_stride words apart; add: (nbatch * N) uint32 or
+// null; out: (M, N) uint32. nbatch == 1: out = a @ b + add. nbatch > 1:
+// rows [q * rows_per_batch, ...) use operand q, the last batch to row M.
+// N > 8 is the tiled form's (sdk_dp_dot_i8_tiled) and is refused here.
 extern "C" int sdk_dp_dot_i8(const void* a_lo, const void* a_hi,
                              long long lda, const void* b, int N,
                              long long b_batch_stride, const void* add,
                              void* out, long long M, int K,
                              long long rows_per_batch, int nbatch,
                              void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || nbatch <= 0 || lda % 4 != 0 ||
+  if (M <= 0 || K <= 0 || N <= 0 || N > 8 || nbatch <= 0 || lda % 4 != 0 ||
       lda < (K + 3) / 4 * 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* lo = static_cast<const int8_t*>(a_lo);
@@ -293,9 +557,70 @@ extern "C" int sdk_dp_dot_i8(const void* a_lo, const void* a_hi,
   auto* o = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      hi ? launch<true>(lo, hi, lda, bb, N, b_batch_stride, ad, o, M, K,
-                        rows_per_batch, nbatch, s)
-         : launch<false>(lo, hi, lda, bb, N, b_batch_stride, ad, o, M, K,
-                         rows_per_batch, nbatch, s);
+      hi ? launch_rows<true>(lo, hi, lda, bb, N, b_batch_stride, ad, o, M, K,
+                             rows_per_batch, nbatch, s)
+         : launch_rows<false>(lo, hi, lda, bb, N, b_batch_stride, ad, o, M, K,
+                              rows_per_batch, nbatch, s);
   return static_cast<int>(rc);
+}
+
+// The tiled form: out (M, N) = a @ b + add, a_lo / a_hi (M, K) int8 with
+// row stride lda bytes (lda % 16 == 0, >= K rounded up to 16; a_hi null:
+// one plane; else a = a_lo + (a_hi << 7), a_lo in [0, 128), a_hi in
+// [0, 4)), b (K, N) uint32 with row stride ldb words (ldb % 4 == 0, >= N;
+// columns N .. ldb zero), every operand on a 16-byte boundary; add (N)
+// uint32 or null. Block tiles of 64 rows x 128 columns.
+extern "C" int sdk_dp_dot_i8_tiled(const void* a_lo, const void* a_hi,
+                                   long long lda, const void* b,
+                                   long long ldb, int N, const void* add,
+                                   void* out, long long M, int K,
+                                   void* stream) {
+  const auto aligned = [](const void* ptr) {
+    return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+  };
+  if (M <= 0 || K <= 0 || N <= 0 || lda % 16 != 0 ||
+      lda < (K + 15) / 16 * 16 || ldb % 4 != 0 || ldb < N ||
+      !aligned(a_lo) || !aligned(b) ||
+      (a_hi && !aligned(a_hi)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TiledArgs p{};
+  p.a_lo = static_cast<const int8_t*>(a_lo);
+  p.a_hi = static_cast<const int8_t*>(a_hi);
+  p.lda = lda;
+  p.b = static_cast<const uint32_t*>(b);
+  p.ldb = ldb;
+  p.add = static_cast<const uint32_t*>(add);
+  p.out = static_cast<uint32_t*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      a_hi ? launch_tiled<true>(p, s) : launch_tiled<false>(p, s);
+  return static_cast<int>(rc);
+}
+
+namespace {
+
+// One warp, `steps` m16n8k32 s8 x u8 products of a = 127 and b = 255 into
+// one set of s32 accumulators that never restart: 1,036,320 a product,
+// past 2^31 from step 2,073. out[lane * 4 + e] = accumulator e.
+__global__ void mma_wrap_probe_kernel(int32_t* out, int steps) {
+  int32_t acc[4] = {0, 0, 0, 0};
+  const uint32_t a[4] = {0x7F7F7F7Fu, 0x7F7F7F7Fu, 0x7F7F7F7Fu, 0x7F7F7F7Fu};
+  for (int s = 0; s < steps; ++s) mma_s8u8(acc, a, 0xFFFFFFFFu, 0xFFFFFFFFu);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[threadIdx.x * 4 + e] = acc[e];
+}
+
+}  // namespace
+
+// Whether the s32 accumulation of mma.sync wraps or saturates (a card
+// test's probe; kernel K never lets its accumulators leave int32): out is
+// (32, 4) int32.
+extern "C" int sdk_dp_mma_wrap_probe(void* out, int steps, void* stream) {
+  if (steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  mma_wrap_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), steps);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,11 @@ exactly one byte of the packed bloom bitfield, stored as
 - 1 B/element: the production DB is 8.6 GB on the device; no unsquished or
   32-bit copy ever exists.
 - The stored tensor IS the left operand of kernel K (csrc/dp_dot_i8.cu),
-  whose native wrapping 32-bit multiply-add is exact for any K: the limb
-  planes and the int32 accumulation bound of the JAX program are gone.
+  exact mod 2^32 for any K in both its forms: the answer's rows form
+  multiplies 32 bits on the CUDA cores; the setup's tiled form runs one
+  int8 tensor-core product a byte plane of the u32 operand and restarts
+  its s32 accumulators every 65,536 k, so the JAX program's limb planes
+  and its int32 accumulation bound are gone.
 - The batched answer makes ONE pass over the DB: each row multiplies only
   the query column its row batch selects (reference answer loops batches
   serially, doublepir.rs:261-316).
@@ -50,7 +53,7 @@ from .matrix import (SEEDS_SHORT, SQUISH_BASIS, SQUISH_DELTA,
                      derive_from_seed_rows)
 from .params import Params
 
-ROW_ALIGN = 16            # bytes; kernel K reads rows in 4-byte words
+ROW_ALIGN = 16            # bytes; K's tiled form copies rows in 16-byte chunks
 UPLOAD_CHUNK_BYTES = 1 << 28
 GLUE_ROWS = 512           # rows of H1 planes per elementwise glue step
 
@@ -63,14 +66,17 @@ def aligned_rows(rows: int, cols: int, device, fill: int = 0) -> torch.Tensor:
                       device=device)[:, :cols]
 
 
-def _kernel_rows(a: torch.Tensor) -> torch.Tensor:
-    """``a`` itself if kernel K can read it in place (rows on 4-byte
-    boundaries, every row's last word inside the storage), else a copy in
+def _kernel_rows(a: torch.Tensor, align: int = 4) -> torch.Tensor:
+    """``a`` itself if kernel K can read it in place (rows on ``align``-byte
+    boundaries: 4 for the rows form's words, 16 for the tiled form's chunks;
+    every row's last word or chunk inside the storage), else a copy in
     aligned rows."""
     rows, cols = a.shape
-    end = a.storage_offset() + (rows - 1) * a.stride(0) + -(-cols // 4) * 4
-    if a.stride(1) == 1 and a.stride(0) % 4 == 0 and a.data_ptr() % 4 == 0 \
-            and a.stride(0) >= cols and end <= a.untyped_storage().nbytes():
+    end = a.storage_offset() + (rows - 1) * a.stride(0) + \
+        -(-cols // align) * align
+    if a.stride(1) == 1 and a.stride(0) % align == 0 \
+            and a.data_ptr() % align == 0 and a.stride(0) >= cols \
+            and end <= a.untyped_storage().nbytes():
         return a
     out = aligned_rows(rows, cols, a.device)
     out.copy_(a)
@@ -78,10 +84,13 @@ def _kernel_rows(a: torch.Tensor) -> torch.Tensor:
 
 
 def _add_row(b: torch.Tensor, c: int):
-    """c * colsum(b) mod 2^32, the row kernel K adds to every output row."""
+    """c * colsum(b) mod 2^32, the row kernel K adds to every output row.
+    The int32 bit patterns are summed as they are (each differs from its
+    u32 value by a multiple of 2^32) into an int32 result, which keeps the
+    sum mod 2^32, with no widened copy of b."""
     if c == 0:
         return None
-    return u32_wrap(c * u32_values(b).sum(0))
+    return u32_wrap(c * b.sum(0, dtype=torch.int32).to(torch.int64))
 
 
 def _check_dot(a_lo, a_hi, b) -> None:
@@ -107,9 +116,40 @@ def _dot_plain(a_lo, a_hi, b, c: int, select: bool) -> torch.Tensor:
     return u32_wrap(z)
 
 
+def _dot_tiled_launch(a_lo, a_hi, b, c: int):
+    """The tiled form (N > 8): rows aligned to 16 bytes, b's columns padded
+    with zeros to a multiple of 4 where they are not (16-byte copies)."""
+    M, K = a_lo.shape
+    N = b.shape[1]
+    a_lo = _kernel_rows(a_lo, ROW_ALIGN)
+    if a_hi is not None:
+        a_hi = _kernel_rows(a_hi, ROW_ALIGN)
+        if a_hi.stride(0) != a_lo.stride(0):
+            raise ValueError("the two planes must share their row stride")
+    add = _add_row(b, c)
+    ldb = -(-N // 4) * 4
+    if ldb != N or not b.is_contiguous() or b.data_ptr() % 16:
+        padded = b.new_zeros((K, ldb))
+        padded[:, :N] = b
+        b = padded
+    out = torch.empty((M, N), dtype=torch.int32, device=b.device)
+    _build.require_cuda(b, out, *([add] if add is not None else []))
+    _build.launch("dp_dot_i8", "sdk_dp_dot_i8_tiled", b.device,
+                  a_lo.data_ptr(),
+                  a_hi.data_ptr() if a_hi is not None else None,
+                  a_lo.stride(0), b.data_ptr(), ldb, N,
+                  add.data_ptr() if add is not None else None,
+                  out.data_ptr(), M, K, _build.stream_of(b))
+    return out
+
+
 def _dot_launch(a_lo, a_hi, b, c: int, select: bool) -> torch.Tensor:
+    """Kernel K: the tiled form for N > 8, else the rows form (with the
+    row-batch select when ``select``)."""
     M, K = a_lo.shape
     nq = b.shape[1]
+    if not select and nq > 8:
+        return _dot_tiled_launch(a_lo, a_hi, b, c)
     a_lo = _kernel_rows(a_lo)
     if a_hi is not None:
         a_hi = _kernel_rows(a_hi)
@@ -156,8 +196,9 @@ def dot_i8_u32(a_i8: torch.Tensor, b: torch.Tensor, c: int = 0) -> torch.Tensor:
 
 def dot_i8pair_u32(a_lo: torch.Tensor, a_hi: torch.Tensor, b: torch.Tensor,
                    c: int = 0) -> torch.Tensor:
-    """(a_lo + (a_hi << 7)) @ b + c * colsum(b), exact mod 2^32, for 10-bit
-    digit operands stored as two int8 planes (kernel K, pair form)."""
+    """(a_lo + (a_hi << 7)) @ b + c * colsum(b), exact mod 2^32, for digit
+    operands below 512 stored as two int8 planes, a_lo in [0, 128) and a_hi
+    in [0, 4) (kernel K, pair form)."""
     return _dot(a_lo, a_hi, b, c, select=False)
 
 

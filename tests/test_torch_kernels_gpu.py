@@ -703,7 +703,8 @@ def test_dp_matmul_u32_packed_matches_plain(cuda, shape):
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("shape", [(37, 1001, 1), (37, 1003, 3), (9, 4098, 8),
                                    (200, 777, 40), (130, 64, 130),
-                                   (1, 5, 2)])
+                                   (1, 5, 2), (131, 1003, 136),
+                                   (257, 4099, 1024)])
 def test_dp_dot_i8_matches_plain(cuda, shape, pair):
     from sdk_tpu_torch.doublepir import server_torch as st
 
@@ -720,6 +721,88 @@ def test_dp_dot_i8_matches_plain(cuda, shape, pair):
         got = st.dot_i8_u32(a.to(cuda), b.to(cuda), c=128 - 232)
         want = st.dot_i8_u32(a, b, c=128 - 232)
     assert torch.equal(got.cpu(), want)
+
+
+def _dot_operands(rng, M, K, N, pair, form):
+    """(a planes, b) on the CPU: the worst values of the tiled form's s32
+    runs (a = -128, b = 0xFFFFFFFF; the pair form's a_lo = 127 with a_hi 2,
+    3 and 1 in turn, a' = 127 with x = 1 at a_hi = 2), or random ones."""
+    if form == "worst":
+        b = torch.full((K, N), -1, dtype=torch.int32)
+        if pair:
+            hi = torch.tensor([2, 3, 1], dtype=torch.int8).repeat(-(-M // 3))
+            return [torch.full((M, K), 127, dtype=torch.int8),
+                    hi[:M, None].expand(M, K).contiguous()], b
+        return [torch.full((M, K), -128, dtype=torch.int8)], b
+    b = _u32(rng, (K, N))
+    if pair:
+        return [torch.from_numpy(rng.integers(0, 128, (M, K)).astype(np.int8)),
+                torch.from_numpy(rng.integers(0, 4, (M, K)).astype(np.int8))], b
+    return [torch.from_numpy(rng.integers(-128, 128, (M, K))
+                             .astype(np.int8))], b
+
+
+@pytest.mark.parametrize("form", ["worst", "random"])
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("K", [65800, 92683])
+def test_dp_dot_i8_tiled_past_one_run(cuda, K, pair, form):
+    """The tiled form past one s32 run of 65,536 k (its accumulators
+    restart) and past the JAX program's 128 * 127 * K < 2^31, at the worst
+    values, in aligned rows of the card."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    M, N = 37, 24
+    planes, b = _dot_operands(np.random.default_rng(15), M, K, N, pair, form)
+    dev = []
+    for pl in planes:
+        rows = st.aligned_rows(M, K, cuda)
+        rows.copy_(pl.to(cuda))
+        dev.append(rows)
+    c = -232 if pair else 128 - 232
+    b_dev = b.to(cuda)
+    got = st._dot(dev[0], dev[1] if pair else None, b_dev, c, False)
+    want = st._dot_plain(dev[0], dev[1] if pair else None, b_dev, c, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_dp_dot_i8_tiled_production_rows(cuda, pair):
+    """256 rows at the production checklist's widths: DB rows (m = 92,683)
+    @ A1 (n = 1,024), or digit rows (l = 92,681) @ A2, with the setup's add
+    rows."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    M, K, N = (256, 92681, 1024) if pair else (256, 92683, 1024)
+    planes, b = _dot_operands(np.random.default_rng(16), M, K, N, pair,
+                              "random")
+    dev = []
+    for pl in planes:
+        rows = st.aligned_rows(M, K, cuda)
+        rows.copy_(pl.to(cuda))
+        dev.append(rows)
+    c = -232 if pair else 128 - 232
+    b_dev = b.to(cuda)
+    got = st._dot(dev[0], dev[1] if pair else None, b_dev, c, False)
+    want = st._dot_plain(dev[0], dev[1] if pair else None, b_dev, c, False)
+    assert torch.equal(got, want)
+
+
+def test_mma_s32_accumulation_wraps(cuda):
+    """mma.sync's s32 accumulation past 2^31 (the probe in dp_dot_i8.cu:
+    3,000 products of 1,036,320 into accumulators that never restart)
+    wraps mod 2^32. Kernel K does not rely on it: its runs stay inside
+    int32 (tests/test_torch_dot_i8_tiling.py)."""
+    steps = 3000
+    out = torch.empty((32, 4), dtype=torch.int32, device=cuda)
+    rc = _build.lib()["sdk_dp_mma_wrap_probe"](
+        out.data_ptr(), steps, _build.stream_of(out))
+    assert rc == 0
+    torch.cuda.synchronize()
+    total = steps * 32 * 127 * 255
+    wrapped = (total + (1 << 31)) % (1 << 32) - (1 << 31)
+    assert total >= 1 << 31
+    assert torch.equal(out.cpu(), torch.full((32, 4), wrapped,
+                                             dtype=torch.int32))
 
 
 @pytest.mark.parametrize("K", [1003, 1004])

@@ -4,9 +4,9 @@ scan) of sdk_tpu_torch on one CUDA card, on a random index of the 1 GiB
 bucket's full size; or kernels A / A' (the NTT), F (the fold round) or G
 (pack + encode) at the 1 GiB bucket's read-path shapes.
 
-    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack]
+    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack|dot]
                                     [--root DIR] [--sweep] [--iters N]
-                                    [--columns 2,32]
+                                    [--columns 2,32] [--config CHECKLIST]
 
 Builds the kernels of the sdk_tpu_torch package found under ``--root``
 (default: this checkout). ``--kernel dense`` (the default) fills an 8.59 GB
@@ -44,6 +44,15 @@ peak), the build's registers and spills, F's blocks an SM
 (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and, with cuobjdump, the
 static SASS instruction counts of the kernels; ``--sweep`` times every
 tiling that ``fold_tiling`` offers.
+
+``--kernel dot`` times kernel K's tiled form at the production checklist
+config (``--config``): the hint setup's H1 on a 4,224-row sample and on
+the whole 8.59 GB DB of random rows from a seed (one launch), one H2
+digit-plane pair launch, the schedule's HBM bytes by an analytic model,
+and the production setup's wall split and peak memory on the same DB; in
+a checkout with the tensor-core form also the answer's a_2 shape in the
+tiled form beside the rows form (``bench_dot``). Its tiling is fixed, so
+``--sweep`` adds nothing there.
 """
 
 from __future__ import annotations
@@ -53,12 +62,14 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)          # this checkout's chip_smoke helpers
 
-from chip_smoke import (BUTTERFLY_OPS, HBM_BYTES_PER_S,  # noqa: E402
-                        INT8_OPS_PER_S, INT32_OPS_PER_S, cuda_ms, device_ms)
+from chip_smoke import (BUTTERFLY_OPS, CHECKLIST,  # noqa: E402
+                        HBM_BYTES_PER_S, INT8_OPS_PER_S, INT32_OPS_PER_S,
+                        cuda_ms, device_ms)
 
 SEED = 20261017
 NTT_COUNTS = (24, 6144, 8192, 65536)
@@ -250,6 +261,121 @@ def bench_pack(torch, params, dev, gen, args) -> dict:
     return out
 
 
+def bench_dot(torch, dev, gen, args) -> dict:
+    """Kernel K's tiled form (the checklist hint setup's products) at the
+    production config: H1 on a 4,224-row sample of the DB and on the whole
+    8.59 GB DB of random rows (one launch), one H2 digit-plane pair launch,
+    each checked against the plain version on row slices (the whole H1's
+    first and last rows) and timed with CUDA events with the setup's add
+    row and without it (c = 0); the analytic HBM bytes of the schedule;
+    the production setup's wall and peak memory on the same DB, then the
+    same setup again split (chip_smoke.setup_split); and, in a checkout
+    with the tensor-core form, the answer's a_2 shape (4,096 digit rows @
+    8 columns) in the tiled form beside the rows form the answer runs."""
+    import numpy as np
+    from chip_smoke import dev_i8, dev_u32, setup_split, tiled_hbm_bytes
+    from sdk_tpu_torch.doublepir import server_torch as st
+    from sdk_tpu_torch.doublepir.params import Params
+
+    params = Params.from_string(args.config)
+    l, m, n, p = params.l, params.m, params.n, params.p
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cores = hasattr(st, "_dot_tiled_launch")
+    bm, bn = (64, 128) if cores else (128, 128)
+    out = {"tensor_cores": cores, "tiling": {"bm": bm, "bn": bn}}
+
+    def check(label, got, lo, hi, b, c):
+        want = st._dot_plain(lo, hi, b, c, False)
+        if not torch.equal(got, want):
+            raise AssertionError(f"dot {label}: kernel != plain")
+
+    def case(label, lo, hi, b, c, products):
+        M, K = lo.shape
+        N = b.shape[1]
+        pair = hi is not None
+        fn = st.dot_i8pair_u32 if pair else st.dot_i8_u32
+        args_ = (lo, hi) if pair else (lo,)
+        iters = 2 if M > 8192 else args.iters
+        moved = M * K * (1 + pair) + K * N * 4 + M * N * 4
+        row = {"shape": [M, K, N], "pair": pair,
+               "ms": cuda_ms(lambda: fn(*args_, b, c=c), iters),
+               "ms_c0": cuda_ms(lambda: fn(*args_, b), iters),
+               "int8_bound_ms": max(moved / HBM_BYTES_PER_S, products * 2 * M
+                                    * K * N / INT8_OPS_PER_S) * 1e3,
+               "int32_bound_ms": max(moved / HBM_BYTES_PER_S, 2 * M * K * N
+                                     / INT32_OPS_PER_S) * 1e3,
+               "analytic_hbm_bytes": tiled_hbm_bytes(M, K, N, bm, bn, sms,
+                                                     pair),
+               "bytes_once": moved}
+        row["int8_share"] = row["int8_bound_ms"] / row["ms_c0"]
+        out[label] = row
+        return row
+
+    # the production DB of random rows, in the engine's own aligned rows
+    srv = st.ChecklistServerTorch(l * m * 8, params, np.zeros(1, np.uint8),
+                                  device=dev)
+    db = srv.db
+    for r0 in range(0, l, 4096):
+        r1 = min(l, r0 + 4096)
+        db[r0:r1].copy_(torch.randint(-128, 128, (r1 - r0, m),
+                                      dtype=torch.int8, device=dev,
+                                      generator=gen))
+    a1 = dev_u32(gen, (m, n), dev)
+    c1 = 128 - p // 2
+    rows = db[:min(l, 33 * 128)]
+    check("sample", st.dot_i8_u32(rows[:128], a1, c=c1), rows[:128], None,
+          a1, c1)
+    case("sample", rows, None, a1, c1, 4)
+    h1 = st.dot_i8_u32(db, a1, c=c1)
+    for sl in (slice(0, 128), slice(l - 97, l)):
+        check("whole H1", h1[sl], db[sl], None, a1, c1)
+    del h1
+    case("whole_h1", db, None, a1, c1, 4)
+    a2 = dev_u32(gen, (l, n), dev)
+    lo, hi = dev_i8(gen, (n, l), dev, 0, 128), dev_i8(gen, (n, l), dev, 0, 4)
+    check("h2 pair", st.dot_i8pair_u32(lo[:128], hi[:128], a2, c=-(p // 2)),
+          lo[:128], hi[:128], a2, -(p // 2))
+    case("h2_pair", lo, hi, a2, -(p // 2), 7)
+    if cores:
+        # the answer's a_2: (n delta, l rounded up to 3) digit planes @ 8
+        l3 = -(-l // 3) * 3
+        d_lo = dev_i8(gen, (n * params.delta(), l3), dev, 0, 128)
+        d_hi = dev_i8(gen, (n * params.delta(), l3), dev, 0, 4)
+        q2 = dev_u32(gen, (l3, 8), dev)
+        want = st.dot_i8pair_u32(d_lo, d_hi, q2)
+        if not torch.equal(st._dot_tiled_launch(d_lo, d_hi, q2, 0), want):
+            raise AssertionError("dot a_2: tiled form != rows form")
+        out["answer_a2"] = {
+            "shape": [n * params.delta(), l3, 8],
+            "rows_ms": cuda_ms(lambda: st.dot_i8pair_u32(d_lo, d_hi, q2),
+                               args.iters),
+            "tiled_ms": cuda_ms(lambda: st._dot_tiled_launch(
+                d_lo, d_hi, q2, 0), args.iters)}
+        del d_lo, d_hi, q2, want
+    del a1, a2, lo, hi, rows
+    torch.cuda.empty_cache()
+
+    # the production setup on the same DB: the AES-derived A1 / A2, as a
+    # user meets it (its wall and peak), then again split into its parts
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    srv.setup_streamed()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    t = time.perf_counter()
+    with setup_split(st) as split:
+        srv.setup_streamed()
+    split["wall_s"] = time.perf_counter() - t
+    out["setup"] = {"wall_s": wall, "split": split,
+                    "allocated_before": before, "max_memory_allocated": peak}
+    del srv, db
+    torch.cuda.empty_cache()
+    return out
+
+
 def int_mm_ms(torch, planes, cols: int, iters: int) -> float:
     a = planes.view(-1, 256)
     b = torch.ones((256, cols), dtype=torch.int8, device=planes.device)
@@ -326,11 +452,13 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--columns", default="2,32")
+    ap.add_argument("--config", default=CHECKLIST,
+                    help="the checklist config of --kernel dot")
     ap.add_argument("--kernel", default="dense",
-                    help="dense, compact, or a list of ntt, fold, pack")
+                    help="dense, compact, dot, or a list of ntt, fold, pack")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
-    if not (kernels in (["dense"], ["compact"])
+    if not (kernels in (["dense"], ["compact"], ["dot"])
             or set(kernels) <= {"ntt", "fold", "pack"}):
         ap.error(f"--kernel {args.kernel}")
     import torch
@@ -352,6 +480,12 @@ def main() -> int:
     params = get_params_from_store(15, 32768)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    if kernels == ["dot"]:
+        out = {"card": card, "root": os.path.abspath(args.root),
+               "dot": bench_dot(torch, dev, gen, args)}
+        out["dot"].update(kernel_report(_build, "dp_dot_i8"))
+        print(json.dumps(out))
+        return 0
     if set(kernels) <= {"ntt", "fold", "pack"}:
         out = {"card": card, "root": os.path.abspath(args.root)}
         for k in kernels:
