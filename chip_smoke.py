@@ -136,6 +136,10 @@ CHECKLIST = "1024,6.4,92681,92683,32,464"   # the production checklist config
 P16 = ('{"n": 2, "nu_1": 2, "nu_2": 2, "p": 16, "q2_bits": 20, "t_gsw": 8,'
        ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
        ' "version": 0}')
+# p = 256 with 251-byte chunks: H reads such chunks a byte at a time
+P256_ODD = ('{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 20, "t_gsw": 8,'
+            ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
+            ' "db_item_size": 1001, "version": 0}')
 BATCH_WINDOW_MS = 25.0          # the service's read-coalescing window
 # integer operations of one Harvey butterfly, as the A / A' rows count them
 BUTTERFLY_OPS = 6
@@ -747,19 +751,28 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
 
     check_pack(params, dev, table, gen)
 
-    # ---- H: 256 items into a dense tensor and into compact planes at cap 8
-    K = min(256, params.num_items() // 4, 8 * num_per)   # 256 at 1 GiB
-    raw = torch.from_numpy(gen.integers(
-        0, 256, (K, it, params.bytes_per_chunk()), dtype=np.uint8)).to(dev)
-    raw[3] = 0
+    # ---- H: 256 and 1,024 items into a dense tensor, into compact planes at
+    # cap 8, over a prefilled index
+    K = min(256, params.num_items() // 8, 8 * num_per)   # 256 at 1 GiB
+    K4 = 4 * K                               # 1,024: a fill's flush chunk
+    raw4 = torch.from_numpy(gen.integers(
+        0, 256, (K4, it, params.bytes_per_chunk()), dtype=np.uint8)).to(dev)
+    raw4[3] = 0
+    raw = raw4[:K]
     ing_ms = {}
 
-    def ingest_check(prm, target_shape, idxs, rawb, label: str):
+    def ingest_check(prm, target_shape, idxs, rawb, label: str,
+                     prefilled: bool = False):
         idxs = np.asarray(sorted(idxs))
         npr = 1 << prm.db_dim_2
         bins, cols = idxs % npr, idxs // npr
-        got = torch.zeros(target_shape, dtype=torch.int8, device=dev)
-        want = torch.zeros(target_shape, dtype=torch.int8, device=dev)
+        if prefilled:
+            got = torch.randint(0, 128, target_shape, dtype=torch.int8,
+                                device=dev)
+            want = got.clone()
+        else:
+            got = torch.zeros(target_shape, dtype=torch.int8, device=dev)
+            want = torch.zeros(target_shape, dtype=torch.int8, device=dev)
         ing.ingest_into(prm, got, bins, cols, rawb)
         sj.db_write_items(prm, want, bins, cols, ing.ingest_plain(prm, rawb))
         table.check("ingest", label, 0 if torch.equal(got, want) else 1)
@@ -769,14 +782,36 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
         plain = cuda_ms(lambda: sj.db_write_items(
             prm, want, bins, cols, ing.ingest_plain(prm, rawb)), 2)
         del got, want
-        return ms, plain
+        return ms, plain, (bins, cols)
+
+    def sector_bound_ms(prm, bins, cols, rawb) -> float:
+        """Bytes of every sector the items touch, read (a partial sector)
+        and written whole, at the HBM rate: the bound of a writer of whole
+        sectors."""
+        plan = ing.sector_plan(1 << prm.db_dim_2, it, bins, cols)
+        sectors = it * 2 * z * sj.NUM_LIMBS
+        full = int(plan.groups[:, 1].sum())
+        part = len(plan.groups) - full
+        moved = nbytes(rawb) + sectors * plan.members * (full + 2 * part)
+        return moved / HBM_BYTES_PER_S * 1e3
 
     dense_shape = sj.db_shape(params)
-    ms, plain_ms = ingest_check(params, dense_shape, range(2 * K, 3 * K), raw,
-                                f"{K} neighbouring items, dense")
-    ing_ms["scattered"] = ingest_check(
+    ms, plain_ms, _ = ingest_check(params, dense_shape, range(2 * K, 3 * K),
+                                   raw, f"{K} neighbouring items, dense")
+    ms4, plain4, _ = ingest_check(params, dense_shape, range(K4, 2 * K4), raw4,
+                                  f"{K4} neighbouring items, dense")
+    scat, _, (sb, sc) = ingest_check(
         params, dense_shape, gen.choice(params.num_items(), K, replace=False),
-        raw, f"{K} scattered items, dense")[0]
+        raw, f"{K} scattered items, dense")
+    ing_ms["scattered"] = scat
+    # whole sectors, and one partial sector in each block of 4 columns: the
+    # last 8 bins of the odd columns hold no item
+    part_idx = [i for i in range(5 * K, 6 * K)
+                if not (i % num_per >= num_per - 8 and (i // num_per) % 2)]
+    ing_ms["partial"] = ingest_check(
+        params, dense_shape, part_idx, raw4[:len(part_idx)],
+        f"{len(part_idx)} items in whole and partial sectors over a "
+        f"prefilled dense index", prefilled=True)[0]
     ing_ms["compact"] = ingest_check(
         params, sj.compact_shape(params, 8), range(K), raw,
         f"{K} items, compact cap 8")[0]
@@ -786,22 +821,49 @@ def phase_fused_kernels(params, dev, table: KernelTable) -> None:
         dtype=np.uint8)).to(dev)
     ingest_check(p16, sj.db_shape(p16), [0, 1, 2, 5, 9, 14, 15], raw16,
                  "p = 16, 7 items, dense")
+    odd = params_from_json(P256_ODD)
+    raw_odd = torch.from_numpy(gen.integers(
+        0, 256, (7, odd.instances * odd.n * odd.n, odd.bytes_per_chunk()),
+        dtype=np.uint8)).to(dev)
+    for shape_odd, kind in ((sj.db_shape(odd), "dense"),
+                            (sj.compact_shape(odd, 8), "compact cap 8")):
+        ingest_check(odd, shape_odd, [0, 1, 2, 5, 9, 14, 15], raw_odd,
+                     f"p = 256, {odd.bytes_per_chunk()}-byte chunks, 7 "
+                     f"items, {kind}", prefilled=True)
+
+    def h_bound(k: int) -> dict:
+        return bound(k * it * params.bytes_per_chunk() + k * it * 2 * z * 4
+                     + 16 * k, k * transform_ops(it, params), INT32_OPS_PER_S)
+
     out_bytes = K * it * 2 * z * 4
     table.timed("ingest", "sdk_tpu_torch/csrc/ingest.cu",
                 "sdk_tpu/kv/ingest.py:61",
                 f"{tuple(raw.shape)} uint8 -> {out_bytes} int8 limbs in place "
                 f"in the dense DB tensor {dense_shape}, {K} neighbouring "
-                f"items (a bulk load's flush); scattered items and compact "
-                f"planes in the other keys",
-                ms, plain_ms,
-                bound(nbytes(raw) + out_bytes + 16 * K,
-                      K * transform_ops(it, params), INT32_OPS_PER_S), None,
+                f"items (whole sectors); {K4} neighbouring items (a fill's "
+                f"flush chunk), scattered items (scattered_bound_ms: the "
+                f"bytes of every sector they touch, read and written whole, "
+                f"at the HBM rate), items in whole and partial sectors over a "
+                f"prefilled index and compact planes at cap 8 in the other "
+                f"keys",
+                ms, plain_ms, h_bound(K), None,
+                neighbouring_1024_ms=ms4,
+                neighbouring_1024_bound_ms=h_bound(K4)["bound_ms"],
+                neighbouring_1024_plain_ms=plain4,
                 scattered_items_ms=ing_ms["scattered"],
-                compact_cap8_ms=ing_ms["compact"])
-    log(f"[kernels] H equals its plain version (dense, compact cap 8, p = 16; "
-        f"limbs in place and residues); {K} neighbouring items {ms:.4f} ms, "
-        f"scattered {ing_ms['scattered']:.4f} ms, compact "
-        f"{ing_ms['compact']:.4f} ms")
+                scattered_bound_ms=sector_bound_ms(params, sb, sc, raw),
+                partial_prefilled_ms=ing_ms["partial"],
+                compact_cap8_ms=ing_ms["compact"],
+                ptxas=_build.ptxas_usage("ingest"))
+    log(f"[kernels] H equals its plain version (dense {K} and {K4} "
+        f"neighbouring, scattered, partial sectors over a prefilled index, "
+        f"compact cap 8, p = 16, 251-byte chunks; limbs in place and "
+        f"residues); {K} "
+        f"neighbouring items {ms:.4f} ms, {K4} {ms4:.4f} ms, scattered "
+        f"{ing_ms['scattered']:.4f} ms, partial {ing_ms['partial']:.4f} ms, "
+        f"compact {ing_ms['compact']:.4f} ms; configuration: batches of "
+        f"{ing.INGEST_BATCH_ITEMS} items")
+    del raw4, raw, raw16, raw_odd
 
 
 
@@ -864,10 +926,36 @@ def k_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
     torch.cuda.empty_cache()
 
 
+def ingest_device_times(params, dev, table: KernelTable,
+                        gen: np.random.Generator) -> None:
+    """H's device time (its transform and sector kernels) at the shapes
+    phase_fused_kernels timed with CUDA events, which carry the host's
+    sector plan and upload: 256 and 1,024 neighbouring items and 256
+    scattered items into a dense index."""
+    from sdk_tpu_torch.kv import ingest as ing
+    from sdk_tpu_torch.ops import spiral as sj
+
+    it = params.instances * params.n * params.n
+    npr = 1 << params.db_dim_2
+    db = torch.zeros(sj.db_shape(params), dtype=torch.int8, device=dev)
+    raw = torch.from_numpy(gen.integers(
+        0, 256, (1024, it, params.bytes_per_chunk()), dtype=np.uint8)).to(dev)
+    row = table.rows["ingest"]
+    for key, idxs in (("device_ms", np.arange(512, 768)),
+                      ("neighbouring_1024_device_ms", np.arange(1024, 2048)),
+                      ("scattered_items_device_ms", np.sort(gen.choice(
+                          params.num_items(), 256, replace=False)))):
+        b, c, r = idxs % npr, idxs // npr, raw[:len(idxs)]
+        row[key] = device_ms(lambda: ing.ingest_into(params, db, b, c, r),
+                             "_kernel", 10)
+    del db, raw
+    torch.cuda.empty_cache()
+
+
 def phase_device_times(params, dev, table: KernelTable) -> None:
-    """Device times of A, A' and F from torch.profiler on fresh inputs of
-    the shapes the kernel phases timed with CUDA events (which carry the
-    wrapper's host time at small shapes). Run last: CUPTI's tracing stays
+    """Device times of A, A', F, E, G, H and K from torch.profiler on fresh
+    inputs of the shapes the kernel phases timed with CUDA events (which
+    carry the wrapper's host time at small shapes). Run last: CUPTI's tracing stays
     attached to the process and slows every launch that follows a profiler
     session (tools/read_stages_gpu.py), so no wall time is taken after it."""
     from sdk_tpu_torch.ops import ntt, spiral as sj
@@ -908,6 +996,7 @@ def phase_device_times(params, dev, table: KernelTable) -> None:
         del cts, keys
     pack_device_times(params, dev, table, gen)
     torch.cuda.empty_cache()
+    ingest_device_times(params, dev, table, gen)
     k_device_times(dev, table)
     row = table.rows["fold_round"]
     log("[device times] torch.profiler: A 8192 polys "
@@ -1422,8 +1511,8 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
     out["compact_to_dense"] = check_compact_to_dense(
         params, db, srv._updates.slots.bin_count, table)
     log(f"[lifecycle] H' equals its plain version on the S2 index; "
-        f"{out['compact_to_dense']['ms']:.3f} ms against the index_put_ "
-        f"route's {out['compact_to_dense']['plain_ms']:.3f} ms")
+        f"{out['compact_to_dense']['ms']:.3f} ms against its plain "
+        f"version's {out['compact_to_dense']['plain_ms']:.3f} ms")
     del db
 
     # S3: past 4,096 items: the next flush migrates to the dense index
@@ -1595,10 +1684,14 @@ def paired_read_ms(buckets: dict, probe: dict, rounds: int = 6) -> dict:
 
 
 def check_compact_to_dense(params, db, counts, table: KernelTable) -> dict:
-    """Kernel H' against its plain version (the index_put_ route the port
-    ran before the kernel) on a compact index, exactly, and both timed."""
+    """Kernel H' against its plain version (a scatter-add by index_put_ per
+    (channel, limb) plane) on a compact index, exactly, and both timed. No
+    one PyTorch call computes the migration: its library column is empty."""
+    from sdk_tpu_torch import _build
     from sdk_tpu_torch.kv.ingest import (compact_to_dense,
-                                         compact_to_dense_plain)
+                                         compact_to_dense_plain,
+                                         migrate_tiling)
+    from sdk_tpu_torch.ops.spiral import db_shape
 
     got = compact_to_dense(params, db, counts)
     want = compact_to_dense_plain(params, db, counts)
@@ -1609,20 +1702,29 @@ def check_compact_to_dense(params, db, counts, table: KernelTable) -> dict:
     ms = cuda_ms(lambda: compact_to_dense(params, db, counts), 3)
     plain_ms = cuda_ms(lambda: compact_to_dense_plain(params, db, counts), 1)
     occupied = int(np.minimum(counts, db.cap_bin).sum())
-    crt, z, L, _, inst, trials, _, _ = db.planes.shape
+    crt, z, L, cw, inst, trials, npr, _ = db.planes.shape
     # this run's data: the occupied slots' limbs read once, every byte of
     # the dense index written once
     b = bound(dense_bytes + occupied * crt * z * L * inst * trials
               + nbytes(db.idx_j) + 4 * len(counts), 0, INT32_OPS_PER_S)
+    tl = migrate_tiling(cw, db_shape(params)[3], inst * trials, npr,
+                        int(np.max(counts)))
+    # analytic, not measured: the slot words up to the fullest bin, which
+    # the kernel stages
+    staged = crt * z * L * tl.cw_used * 4 * inst * trials * npr
     table.timed("compact_to_dense", "sdk_tpu_torch/csrc/compact_to_dense.cu",
                 "sdk_tpu/kv/ingest.py:161",
                 f"the S2 compact index (cap {db.cap_bin}, {occupied} occupied "
                 f"slots, {nbytes(db.planes)} bytes of planes) -> a new dense "
-                f"index of {dense_bytes} bytes; plain_ms and library_ms: the "
-                f"plain version, index_put_(accumulate=True) per (channel, "
-                f"limb) plane, the route the port ran before this kernel",
-                ms, plain_ms, b, library_ms=plain_ms, occupied_slots=occupied,
-                dense_GBps=dense_bytes / ms / 1e6)
+                f"index of {dense_bytes} bytes; bound_ms counts the occupied "
+                f"slots' bytes, the kernel reads every slot word up to the "
+                f"fullest bin; plain_ms: the plain version, "
+                f"index_put_(accumulate=True) per (channel, limb) plane",
+                ms, plain_ms, b, None, occupied_slots=occupied,
+                dense_GBps=dense_bytes / ms / 1e6,
+                ptxas=_build.ptxas_usage("compact_to_dense"))
+    log(f"[kernels] H' configuration: tile {tl._asdict()}; analytic staged "
+        f"plane bytes (slot words up to the fullest bin) {staged}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
             "occupied_slots": occupied}
 

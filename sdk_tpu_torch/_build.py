@@ -74,10 +74,10 @@ _SIGNATURES = {
     "sdk_pack": ("pack", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _U, _U, _ULL, _LL, _ULL, _U, _U, _U, _U, _U, _P)),
     "sdk_pack_occupancy": ("pack", (_I, _I, _I)),
-    "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL,
-                              _LL, _I, _U, _U, _P)),
-    "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _P, _LL, _I,
-                                                  _I, _I, _I, _P)),
+    "sdk_ingest": ("ingest", (_P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _I, _I,
+                              _I, _I, _I, _LL, _LL, _I, _U, _U, _P)),
+    "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _LL, _I, _I,
+                                                  _I, _I, _I, _I, _I, _I, _P)),
     "sdk_psum_mod": ("psum_mod", (_P, _I, _LL, _LL, _U, _U, _I, _P, _P)),
     "sdk_expansion": ("expansion", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _ULL, _U, _U,

@@ -1,32 +1,20 @@
 // Negacyclic NTT butterflies over 2048-point polynomials, shared by ntt.cu
-// and the fused kernels (fold_round.cu, pack.cu, ingest.cu). Two forms:
+// and the fused kernels (fold_round.cu, expansion.cu, pack.cu, ingest.cu):
+// the transform core (namespace sdk::core, below). A 2048-point transform
+// is owned by a group of 128 threads that hold 16 coefficients each in
+// registers and run three passes of 3, 4 and 4 stages (radix 2^3, 2^4, 2^4)
+// with two exchanges through a padded shared buffer between them, so a
+// transform has two barriers of its group. The passes' index maps and
+// twiddle indices are mirrored by sdk_tpu_torch/ops/ntt.py (CORE_PASSES,
+// core_index, core_pad, core_twiddle), which
+// tests/test_torch_ntt_fold_schedule.py emulates.
 //
-// * The transform core (namespace sdk::core, below): a 2048-point transform
-//   is owned by a group of 128 threads that hold 16 coefficients each in
-//   registers and run three passes of 3, 4 and 4 stages (radix 2^3, 2^4,
-//   2^4) with two exchanges through a padded shared buffer between them, so
-//   a transform has two barriers of its group. ntt.cu (A, A'),
-//   fold_round.cu (F), expansion.cu (E) and pack.cu (G) run on it. The
-//   passes' index maps and twiddle indices are mirrored by
-//   sdk_tpu_torch/ops/ntt.py (CORE_PASSES, core_index, core_pad,
-//   core_twiddle), which tests/test_torch_ntt_fold_schedule.py emulates.
-// * ntt_forward_smem / ntt_inverse_smem: the older stage-at-a-time form over
-//   polynomials held in shared memory (one barrier a stage), still used by
-//   ingest.cu (H).
-//
-// Arithmetic (both forms): the Harvey butterflies of the reference
-// (ntt_host.py:20-77) with Shoup-scaled twiddles from params.ntt_tables, in
-// wrapping uint32: w*y - mulhi(y, w')*q is exact because the true
-// difference is < 2q < 2^30. Twiddles are indexed [m : 2m] per stage and the
-// output is in ntt_host order; the inverse's halving step (x + q*(t&1)) >> 1
-// carries the 1/n. Any grouping of these exact butterflies gives the same
-// canonical words.
-//
-// The stage-at-a-time functions are called by all threads of the block, on
-// `npolys` polynomials of n = 2^log_n words laid out back to back in shared
-// memory, polynomial p living in CRT channel (chan0 + p) & 1. The caller
-// makes its writes to `s` visible (__syncthreads) before the call; each
-// function ends with a barrier, so `s` may be read right after it.
+// Arithmetic: the Harvey butterflies of the reference (ntt_host.py:20-77)
+// with Shoup-scaled twiddles from params.ntt_tables, in wrapping uint32:
+// w*y - mulhi(y, w')*q is exact because the true difference is < 2q < 2^30.
+// Twiddles are indexed [m : 2m] per stage and the output is in ntt_host
+// order; the inverse's halving step (x + q*(t&1)) >> 1 carries the 1/n. Any
+// grouping of these exact butterflies gives the same canonical words.
 //
 // tables: (2, 4, n) uint32 = per channel (w, w', w_inv, w_inv').
 
@@ -49,80 +37,6 @@ __device__ __forceinline__ uint32_t ntt_canonical(uint32_t v, uint32_t q) {
   const uint32_t two_q = 2u * q;
   v = v >= two_q ? v - two_q : v;
   return v >= q ? v - q : v;
-}
-
-// Forward transform in place. Inputs < 4q; outputs lazy in [0, 4q)
-// (ntt_canonical makes them canonical).
-__device__ __forceinline__ void ntt_forward_smem(uint32_t* s, int npolys,
-                                                 int chan0,
-                                                 const uint32_t* __restrict__ tables,
-                                                 int log_n, uint32_t q0,
-                                                 uint32_t q1) {
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  for (int mm = 0; mm < log_n; ++mm) {
-    const int m = 1 << mm;
-    const int t_log = log_n - mm - 1;
-    for (int p = 0; p < npolys; ++p) {
-      const int c = (chan0 + p) & 1;
-      const uint32_t q = c ? q1 : q0;
-      const uint32_t two_q = 2u * q;
-      const uint32_t* w_tbl = tables + static_cast<size_t>(c) * 4 * n;
-      const uint32_t* wp_tbl = w_tbl + n;
-      uint32_t* sp = s + (static_cast<size_t>(p) << log_n);
-      for (int i = threadIdx.x; i < half; i += blockDim.x) {
-        const int g = i >> t_log;
-        const int xi = (g << (t_log + 1)) + (i & ((1 << t_log) - 1));
-        const int yi = xi + (1 << t_log);
-        const uint32_t w = w_tbl[m + g];
-        const uint32_t wp = wp_tbl[m + g];
-        const uint32_t xs = sp[xi];
-        const uint32_t ys = sp[yi];
-        const uint32_t cx = xs >= two_q ? xs - two_q : xs;
-        const uint32_t qn = w * ys - __umulhi(ys, wp) * q;
-        sp[xi] = cx + qn;
-        sp[yi] = cx + (two_q - qn);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse transform in place. Inputs < 2q; outputs lazy in [0, 2q)
-// (ntt_canonical makes them canonical).
-__device__ __forceinline__ void ntt_inverse_smem(uint32_t* s, int npolys,
-                                                 int chan0,
-                                                 const uint32_t* __restrict__ tables,
-                                                 int log_n, uint32_t q0,
-                                                 uint32_t q1) {
-  const int n = 1 << log_n;
-  const int half = n >> 1;
-  for (int mm = log_n - 1; mm >= 0; --mm) {
-    const int h = 1 << mm;
-    const int t_log = log_n - mm - 1;
-    for (int p = 0; p < npolys; ++p) {
-      const int c = (chan0 + p) & 1;
-      const uint32_t q = c ? q1 : q0;
-      const uint32_t two_q = 2u * q;
-      const uint32_t* wi_tbl = tables + static_cast<size_t>(c) * 4 * n + 2 * n;
-      const uint32_t* wip_tbl = wi_tbl + n;
-      uint32_t* sp = s + (static_cast<size_t>(p) << log_n);
-      for (int i = threadIdx.x; i < half; i += blockDim.x) {
-        const int g = i >> t_log;
-        const int xi = (g << (t_log + 1)) + (i & ((1 << t_log) - 1));
-        const int yi = xi + (1 << t_log);
-        const uint32_t w = wi_tbl[h + g];
-        const uint32_t wp = wip_tbl[h + g];
-        const uint32_t xs = sp[xi];
-        const uint32_t ys = sp[yi];
-        const uint32_t t_tmp = two_q - ys + xs;
-        const uint32_t cx = xs + ys - ((xs << 1) >= t_tmp ? two_q : 0u);
-        sp[xi] = (cx + q * (t_tmp & 1u)) >> 1;
-        sp[yi] = w * t_tmp - __umulhi(t_tmp, wp) * q;
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ dense layout (kernel H', csrc/compact_to_dense.cu).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -68,28 +70,87 @@ def ingest_plain(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor:
     return ntt_forward_plain(params, chans)
 
 
+# items a transform / sector-writer pair of kernel H takes: its scratch of
+# residues, INGEST_BATCH_ITEMS x chunks x 2 x z x 4 bytes, is 67.1 MB at the
+# 1 GiB bucket
+INGEST_BATCH_ITEMS = 256
+
+
+class SectorPlan(NamedTuple):
+    """Kernel H's work for one flush chunk: its items grouped by the 32-byte
+    sector of the index they share (csrc/ingest.cu)."""
+    order: np.ndarray     # (K,) int64: the item at each position; a group's
+    #                       members are neighbouring positions
+    table: np.ndarray     # (G, members) int32: the position of the item at
+    #                       each byte of the group's sector, -1 for none
+    groups: np.ndarray    # (G, 2) int64: the sector's byte offset in a (c, z,
+    #                       l) row of the index at chunk 0; 1 if it is full
+    batches: np.ndarray   # (B + 1, 2) int64: each batch's first group and
+    #                       first position, then (G, K)
+    members: int          # bytes of a sector: 4 columns x min(8, num_per) bins
+
+
+def sector_plan(num_per: int, chunks: int, bins, cols,
+                batch_items: int = INGEST_BATCH_ITEMS) -> SectorPlan:
+    """Group K items at (bins[k], cols[k]) of an index [c, z, l, col/4,
+    chunks, num_per, 4] by sector, (col // 4, bin // 8): a sector holds
+    byte (bin % 8) * 4 + col % 4 of 8 neighbouring bins x 4 neighbouring
+    columns (num_per bins where num_per < 8). Batches of whole groups hold
+    at most batch_items items, or one group."""
+    bins = np.asarray(bins, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    K = len(bins)
+    bs = min(8, num_per)
+    members = 4 * bs
+    key = (cols // 4) * (num_per // bs) + bins // bs
+    byte = (bins % bs) * 4 + cols % 4
+    order = np.lexsort((byte, key))
+    key, byte = key[order], byte[order]
+    if np.any((key[1:] == key[:-1]) & (byte[1:] == byte[:-1])):
+        raise ValueError("ingest: the (bin, column) pairs must be distinct")
+    new = np.concatenate([[True], key[1:] != key[:-1]])[:K]
+    first = np.flatnonzero(new)
+    G = len(first)
+    table = np.full((G, members), -1, dtype=np.int32)
+    table[np.cumsum(new) - 1, byte] = np.arange(K, dtype=np.int32)
+    gkey = key[first]
+    base = ((gkey // (num_per // bs)) * chunks * num_per
+            + (gkey % (num_per // bs)) * bs) * 4
+    groups = np.stack([base, (table >= 0).all(1).astype(np.int64)], axis=1)
+    starts, taken = [], batch_items
+    for g, n in enumerate(np.diff(np.append(first, K)).tolist()):
+        if taken + n > batch_items:
+            starts.append(g)
+            taken = 0
+        taken += n
+    batches = np.array([(g, first[g]) for g in starts] + [(G, K)],
+                       dtype=np.int64)
+    return SectorPlan(order, table, groups, batches, members)
+
+
 def _ingest_launch(params: Params, raw_bytes: torch.Tensor, target=None,
                    bins=None, cols=None):
     """Kernel H (csrc/ingest.cu): with ``target`` (the dense DB tensor or the
     compact planes) the limbs of item k are written in place at num_per bin
-    bins[k], column cols[k], and nothing is returned; without it the NTT
-    residues (K, chunks, crt, z) int32 are."""
+    bins[k], column cols[k], sector by sector (sector_plan), and nothing is
+    returned; without it the NTT residues (K, chunks, crt, z) int32 are."""
     _check_raw_bytes(params, raw_bytes)
     raw_bytes = raw_bytes.contiguous()
+    if raw_bytes.data_ptr() % 4:            # the kernel reads 4-byte words
+        raw_bytes = raw_bytes.clone()
     K, chunks, chunk_bytes = raw_bytes.shape
-    tb = ntt_tables(params, raw_bytes.device)
-    out = None
+    dev = raw_bytes.device
+    tb = ntt_tables(params, dev)
+    num_per = 1 << params.db_dim_2
     if target is None:
-        out = torch.empty((K, chunks, params.crt_count, params.poly_len),
-                          dtype=torch.int32, device=raw_bytes.device)
-        bins = cols = torch.zeros(1, dtype=torch.int64,
-                                  device=raw_bytes.device)
-        jw, num_per = 0, 0
-        _build.require_cuda(raw_bytes, tb)
+        res = torch.empty((K, chunks, params.crt_count, params.poly_len),
+                          dtype=torch.int32, device=dev)
+        _build.require_cuda(raw_bytes, tb, res)
+        ptrs, batches = (None, None, None), np.zeros((1, 2), np.int64)
+        members, jw = 4, 0
     else:
         # a shard of a mesh holds some of the trials (ops/shard.py): the
         # items' chunk bytes are those of its trials
-        num_per = 1 << params.db_dim_2
         jw, trials = (target.shape[3], target.shape[5]) if target.ndim == 8 \
             else (0, 0)
         if (target.dtype != torch.int8 or target.ndim != 8
@@ -97,7 +158,7 @@ def _ingest_launch(params: Params, raw_bytes: torch.Tensor, target=None,
                     params.crt_count, params.poly_len, NUM_LIMBS, jw,
                     params.instances, trials, num_per, 4)
                 or chunks != params.instances * trials
-                or params.crt_count != 2):
+                or params.crt_count != 2 or target.data_ptr() % 16):
             raise ValueError(f"ingest: bad index tensor {target.dtype} "
                              f"{tuple(target.shape)}")
         # checked on the host: the pairs come from the host's bookkeeping
@@ -108,19 +169,31 @@ def _ingest_launch(params: Params, raw_bytes: torch.Tensor, target=None,
         if K and (bins.min() < 0 or bins.max() >= num_per or cols.min() < 0
                   or cols.max() >= 4 * jw):
             raise ValueError("ingest: (bin, column) outside the index")
-        bins = torch.from_numpy(bins).to(raw_bytes.device)
-        cols = torch.from_numpy(cols).to(raw_bytes.device)
-        _build.require_cuda(raw_bytes, tb, target, bins, cols)
+        plan = sector_plan(num_per, chunks, bins, cols)
+        rows = int(np.diff(plan.batches[:, 1]).max(initial=0))
+        res = torch.empty((rows, chunks, params.crt_count, params.poly_len),
+                          dtype=torch.int32, device=dev)
+        # the plan's three arrays in one upload
+        parts = [np.ascontiguousarray(a).view(np.uint8).ravel()
+                 for a in (plan.order, plan.table, plan.groups)]
+        offs = np.cumsum([0] + [-(-len(a) // 16) * 16 for a in parts])
+        host = np.zeros(offs[-1], dtype=np.uint8)
+        for a, o in zip(parts, offs):
+            host[o:o + len(a)] = a
+        buf = torch.from_numpy(host).to(dev)
+        _build.require_cuda(raw_bytes, tb, target, res, buf)
+        ptrs = tuple(buf.data_ptr() + int(o) for o in offs[:3])
+        batches, members = np.ascontiguousarray(plan.batches), plan.members
     q0, q1 = params.moduli
-    _build.launch("ingest", "sdk_ingest", raw_bytes.device,
-                  raw_bytes.data_ptr(), bins.data_ptr(), cols.data_ptr(),
-                  tb.data_ptr(),
+    _build.launch("ingest", "sdk_ingest", dev, raw_bytes.data_ptr(), *ptrs,
+                  batches.ctypes.data, len(batches) - 1, tb.data_ptr(),
                   None if target is None else target.data_ptr(),
-                  None if out is None else out.data_ptr(), K, chunks,
-                  chunk_bytes, params.modp_words_per_chunk(),
-                  log2_exact(params.pt_modulus), jw, num_per,
+                  res.data_ptr(), K, chunks, chunk_bytes,
+                  params.modp_words_per_chunk(),
+                  log2_exact(params.pt_modulus), members,
+                  jw * chunks * num_per * 4, num_per * 4,
                   params.poly_len_log2, q0, q1, _build.stream_of(raw_bytes))
-    return out
+    return res if target is None else None
 
 
 def ingest_items_device(params: Params, raw_bytes: torch.Tensor) -> torch.Tensor:
@@ -250,29 +323,83 @@ def compact_to_dense_plain(params: Params, db: CompactDb,
     return dense
 
 
+# shared memory of a kernel H' block: the dense tile it assembles, its
+# list of slots (4 bytes a slot) and each of its two row stages
+MIGRATE_TILE_BYTES = 64 * 1024
+MIGRATE_LIST_BYTES = 32 * 1024
+MIGRATE_STAGE_BYTES = 16 * 1024
+_MAX_SMEM = 226 * 1024
+
+
+class MigrateTiling(NamedTuple):
+    """A kernel H' block's tile (csrc/compact_to_dense.cu): it_t chunks x
+    jw_t column words of every (c, z, l) row, staging the first cw_used slot
+    words of each compact row; its slot list holds list_max slots."""
+    it_t: int
+    jw_t: int
+    cw_used: int
+    list_max: int
+
+
+def migrate_tiling(cw: int, jw: int, it_n: int, npr: int,
+                   max_count: int) -> MigrateTiling:
+    """The widest power-of-two tile, column words first, whose dense tile,
+    slot list and row stage fit their budgets (at least the 16 bytes of a
+    store a column word: it_t * npr >= 4); max_count, the fullest bin's
+    occupied slots, bounds the slot words staged and a bin's slots in the
+    list."""
+    cw_used = min(cw, -(-max(0, max_count) // 4))
+    it_t = max(1, 4 // npr)
+    if it_n % it_t or npr & (npr - 1) or jw & (jw - 1):
+        raise ValueError(f"compact_to_dense: no tile of {it_n} chunks x "
+                         f"{npr} bins x {jw} column words")
+
+    def fits(it, jwt):
+        return (jwt * it * npr * 4 <= MIGRATE_TILE_BYTES
+                and 4 * npr * min(4 * cw_used, 4 * jwt) <= MIGRATE_LIST_BYTES)
+
+    jw_t = 1
+    while 2 * jw_t <= jw and fits(it_t, 2 * jw_t):
+        jw_t *= 2
+    while (it_n % (2 * it_t) == 0 and fits(2 * it_t, jw_t)
+           and cw_used * 2 * it_t * npr * 4 <= MIGRATE_STAGE_BYTES):
+        it_t *= 2
+    tile = jw_t * it_t * npr * 4
+    stage = cw_used * it_t * npr * 4
+    list_max = npr * min(4 * cw_used, 4 * jw_t)
+    smem = tile + -(-4 * list_max // 16) * 16 + 2 * stage
+    if tile > 65536 or stage > 65536 or smem > _MAX_SMEM:
+        raise ValueError(f"compact_to_dense: a tile needs {smem} bytes of "
+                         f"shared memory")
+    return MigrateTiling(it_t, jw_t, cw_used, list_max)
+
+
 def _compact_to_dense_launch(params: Params, db: CompactDb,
                              counts) -> torch.Tensor:
     """Kernel H' (csrc/compact_to_dense.cu): one launch writes every byte
-    of a new dense tensor."""
+    of a new dense tensor, a tile of migrate_tiling a block."""
     planes, idx_j = db
     crt, z, L, cw, inst, trials, npr, four = planes.shape
     want = compact_shape(params, 4 * cw)
     if (planes.dtype != torch.int8 or idx_j.dtype != torch.int32
             or tuple(planes.shape) != want
-            or tuple(idx_j.shape) != (npr, 4 * cw)):
+            or tuple(idx_j.shape) != (npr, 4 * cw)
+            or planes.data_ptr() % 16):          # 16-byte cp.async copies
         raise ValueError(f"compact_to_dense: planes {planes.dtype} "
                          f"{tuple(planes.shape)}, idx_j {idx_j.dtype} "
                          f"{tuple(idx_j.shape)}")
+    max_count = int(np.max(np.asarray(counts), initial=0))
     counts = _bin_counts(db, counts)
     shape = db_shape(params)
     jw = shape[3]
+    tl = migrate_tiling(cw, jw, inst * trials, npr, max_count)
     dense = torch.empty(shape, dtype=torch.int8, device=planes.device)
-    inv = torch.empty((jw * npr * 4,), dtype=torch.int16, device=planes.device)
-    _build.require_cuda(planes, idx_j, counts, inv, dense)
+    _build.require_cuda(planes, idx_j, counts, dense)
     _build.launch("compact_to_dense", "sdk_compact_to_dense", planes.device,
                   planes.data_ptr(), idx_j.data_ptr(), counts.data_ptr(),
-                  inv.data_ptr(), dense.data_ptr(), crt * z * L, cw, jw,
-                  inst * trials, npr, _build.stream_of(planes))
+                  dense.data_ptr(), crt * z * L, cw, tl.cw_used, jw,
+                  inst * trials, log2_exact(npr), log2_exact(tl.it_t),
+                  log2_exact(tl.jw_t), tl.list_max, _build.stream_of(planes))
     return dense
 
 

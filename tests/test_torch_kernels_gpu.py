@@ -388,6 +388,12 @@ P16 = params_from_json(
     '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 16, "q2_bits": 20, "t_gsw": 8,'
     ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
     ' "version": 0}')
+# p = 256 with 251-byte chunks: every chunk but the first starts off a
+# 4-byte boundary
+P256_ODD = params_from_json(
+    '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 20, "t_gsw": 8,'
+    ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
+    ' "db_item_size": 1001, "version": 0}')
 
 
 FOLD_CLUSTERS = (1, 2, 4)
@@ -519,12 +525,14 @@ def test_pack_matches_plain(cuda, name, nq):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("params", [PARAMS, P16], ids=["p256", "p16"])
+@pytest.mark.parametrize("params", [PARAMS, P16, P256_ODD],
+                         ids=["p256", "p16", "p256_chunk251"])
 @pytest.mark.parametrize("target", ["dense", "compact"])
 def test_ingest_into_matches_plain(cuda, params, target):
     """Kernel H writing in place into a dense tensor and into compact
     planes, against ingest_plain + db_write_items, over an index that already
-    holds other bytes; and its residue output."""
+    holds other bytes; and its residue output. p = 256 with chunks of 251
+    bytes reads each chunk a byte at a time, off 4-byte boundaries."""
     rng = np.random.default_rng(33)
     chunks = params.instances * params.n * params.n
     K = 7
@@ -549,6 +557,53 @@ def test_ingest_into_matches_plain(cuda, params, target):
                        ingest_t.ingest_plain(params, raw))
     with pytest.raises(ValueError):
         ingest_t.ingest_into(params, got, bins + num_per, cols, raw.to(cuda))
+
+
+# 64 bins a row (32-byte sectors, as the 1 GiB bucket), 128 columns, 8,192
+# items
+WIDE = params_from_json(
+    '{"n": 2, "nu_1": 7, "nu_2": 6, "p": 256, "q2_bits": 22, "t_gsw": 7,'
+    ' "t_conv": 3, "t_exp_left": 5, "t_exp_right": 5, "instances": 1,'
+    ' "version": 1}')
+
+
+@pytest.mark.parametrize("case", ["neighbouring_1024", "scattered",
+                                  "partial_groups", "group_split"])
+def test_ingest_into_sector_cases(cuda, case):
+    """Kernel H's sector writer over a prefilled dense index of 32-byte
+    sectors, against ingest_plain + db_write_items, one launch a flush
+    chunk: a bulk load's 1,024 neighbouring items (whole sectors), scattered
+    items (a sector each, read-modify-write), groups with holes beside
+    whole ones and a group split across two launches. 1,024 items are
+    several transform / writer pairs in one launch."""
+    params = WIDE
+    rng = np.random.default_rng(60)
+    chunks = params.instances * params.n * params.n
+    n = params.num_items()
+    idxs = {"neighbouring_1024": np.arange(1024, 2048),
+            "scattered": np.sort(rng.choice(n, 256, replace=False)),
+            "partial_groups": np.sort(np.r_[np.arange(512, 640),
+                                            rng.choice(512, 100, replace=False)]),
+            "group_split": np.arange(8, 200)}[case]
+    K = len(idxs)
+    raw = torch.from_numpy(rng.integers(
+        0, 256, (K, chunks, params.bytes_per_chunk()), dtype=np.uint8))
+    num_per = 1 << params.db_dim_2
+    bins, cols = idxs % num_per, idxs // num_per
+    start = torch.from_numpy(rng.integers(0, 128, sj.db_shape(params),
+                                          dtype=np.int8)).to(cuda)
+    want = start.clone()
+    sj.db_write_items(params, want, bins, cols,
+                      ingest_t.ingest_plain(params, raw.to(cuda)))
+    got = start
+    dev_raw = raw.to(cuda)
+    splits = {"group_split": (0, 21, K)}.get(case, (0, K))
+    _build.reset_launches()
+    for s, e in zip(splits[:-1], splits[1:]):
+        ingest_t.ingest_into(params, got, bins[s:e], cols[s:e], dev_raw[s:e])
+    assert _build.LAUNCHES["ingest"] == len(splits) - 1
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
 
 
 def _session(params, seed: int):
@@ -889,12 +944,44 @@ def test_psum_mod_matches_plain(cuda, D, form):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("cap", [4, 8])
+def _random_compact(params, cap, gen, cuda):
+    """A compact index of random bytes on the card: every bin's cap slots
+    on distinct random dim0 columns, its first counts[b] occupied (random
+    counts, bin 0 full with slot 0 on column 0)."""
+    planes = torch.randint(-128, 128, sj.compact_shape(params, cap),
+                           dtype=torch.int8, device=cuda, generator=gen)
+    npr, dim0 = 1 << params.db_dim_2, 1 << params.db_dim_1
+    idx_j = torch.stack([torch.randperm(dim0, device=cuda, generator=gen)[:cap]
+                         for _ in range(npr)]).to(torch.int32)
+    at = (idx_j[0] == 0).nonzero().flatten()      # column 0 to slot 0
+    if len(at):
+        idx_j[0, at[0]] = idx_j[0, 0].clone()
+    idx_j[0, 0] = 0
+    counts = torch.randint(0, cap + 1, (npr,), generator=gen,
+                           device=cuda).cpu().numpy()
+    counts[0] = cap
+    return sj.CompactDb(planes, idx_j), counts
+
+
+@pytest.mark.parametrize("cap", [4, 8, 64, 128])
 def test_compact_to_dense_matches_plain(cuda, cap):
     """Kernel H' against its plain version on a compact index whose bin 0
-    holds item 0 at dim0 column 0 (the idx_j every unoccupied slot carries)
+    holds an item at dim0 column 0 (the idx_j every unoccupied slot carries)
     and whose unoccupied slots hold random bytes and random idx_j: only the
-    occupied slots s < counts[b] are placed."""
+    occupied slots s < counts[b] are placed. Caps 4 and 8 at the fast
+    params (4 bins a row); caps 64 (the fill's) and 128 (the S2 state's)
+    over 64 bins a row, random slots."""
+    if cap >= 64:
+        params = WIDE
+        gen = torch.Generator(device=cuda).manual_seed(40 + cap)
+        db, counts = _random_compact(params, cap, gen, cuda)
+        want = ingest_t.compact_to_dense_plain(params, db, counts)
+        assert want[:, :, :, 0, :, :, 0, 0].any()
+        _build.reset_launches()
+        got = ingest_t.compact_to_dense(params, db, counts)
+        assert _build.LAUNCHES["compact_to_dense"] == 1
+        assert torch.equal(got, want)
+        return
     params = PARAMS
     rng = np.random.default_rng(40 + cap)
     row_len = params.instances * params.n * params.n * params.bytes_per_chunk()

@@ -2,9 +2,11 @@
 """Time kernel C (the dense first-dimension scan) or kernel I (the compact
 scan) of sdk_tpu_torch on one CUDA card, on a random index of the 1 GiB
 bucket's full size; or kernels A / A' (the NTT), F (the fold round) or G
-(pack + encode) at the 1 GiB bucket's read-path shapes.
+(pack + encode) at the 1 GiB bucket's read-path shapes; or K's tiled form,
+or the write path's H and H'.
 
-    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack|dot]
+    python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack|dot
+                                              |ingest|migrate]
                                     [--root DIR] [--sweep] [--iters N]
                                     [--columns 2,32] [--config CHECKLIST]
 
@@ -53,6 +55,16 @@ and the production setup's wall split and peak memory on the same DB; in
 a checkout with the tensor-core form also the answer's a_2 shape in the
 tiled form beside the rows form (``bench_dot``). Its tiling is fixed, so
 ``--sweep`` adds nothing there.
+
+``--kernel ingest`` times kernel H (the write path's ingest) on a
+full-size 8.59 GB dense index: 256 and 1,024 neighbouring items and 256
+scattered items, each checked against the plain version on a z-slice,
+with CUDA events and each kernel's profiler device time, beside the byte
+bound and the sector floor; then the full 32,768-item fill through the bucket server twice (writes, flushes,
+peak memory) and the lifecycle's migrating flush (``bench_ingest``,
+``bench_fill``). ``--kernel migrate`` times kernel H' (the dense
+migration) on random S2 (cap 128) and fill (cap 64) compact indexes,
+checked whole against the plain version (``bench_migrate``).
 """
 
 from __future__ import annotations
@@ -376,6 +388,226 @@ def bench_dot(torch, dev, gen, args) -> dict:
     return out
 
 
+def bench_ingest(torch, sj, params, dev, gen, args) -> dict:
+    """Kernel H at the 1 GiB bucket's write-path shapes, on a full-size
+    8.59 GB dense index of random limbs: 256 and 1,024 neighbouring items
+    (whole sectors: a bulk load's flush chunk) and 256 scattered items, each
+    checked against the plain version on a z-slice of the index and timed
+    with CUDA events and (last) torch.profiler device times; the bounds
+    (bytes; the scattered items' sector floor: every sector they touch read
+    and written whole); then the full 32,768-item fill through the bucket
+    server (bench_fill)."""
+    import numpy as np
+    from sdk_tpu_torch.kv import ingest as ing
+
+    it = params.instances * params.n * params.n
+    z, npr = params.poly_len, 1 << params.db_dim_2
+    db = torch.randint(0, 128, sj.db_shape(params), dtype=torch.int8,
+                       device=dev, generator=gen)
+    rng = np.random.default_rng(SEED)
+    raw = torch.from_numpy(rng.integers(
+        0, 256, (1024, it, params.bytes_per_chunk()), dtype=np.uint8)).to(dev)
+    cases = {"neighbouring_256": np.arange(512, 768),
+             "neighbouring_1024": np.arange(1024, 2048),
+             "scattered_256": np.sort(rng.choice(params.num_items(), 256,
+                                                 replace=False))}
+    sectors = it * 2 * z * 4
+    out, calls = {}, {}
+    for name, idxs in cases.items():
+        K = len(idxs)
+        bins, cols = idxs % npr, idxs // npr
+        rb = raw[:K]
+        zs = 64
+        before = db[:, :zs].clone()
+        ing.ingest_into(params, db, bins, cols, rb)
+        want = before
+        sj.db_write_items(params, want, bins, cols,
+                          ing.ingest_plain(params, rb)[..., :zs].contiguous())
+        if not torch.equal(db[:, :zs], want):
+            raise AssertionError(f"ingest {name}: kernel != plain")
+        del before, want
+        fn = (lambda b=bins, c=cols, r=rb: ing.ingest_into(params, db, b, c, r))
+        calls[name] = fn
+        moved = K * it * params.bytes_per_chunk() + K * it * 2 * z * 4 + 16 * K
+        row = {"items": K, "ms": cuda_ms(fn, args.iters),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        # every touched sector stored whole, a partial one read first
+        groups = np.unique((cols // 4) * (npr // 8) + bins // 8)
+        full = sum(1 for g in groups
+                   if np.sum((cols // 4) * (npr // 8) + bins // 8 == g) == 32)
+        row["sector_floor_ms"] = (K * it * params.bytes_per_chunk() + sectors
+                                  * 32 * (full + 2 * (len(groups) - full))
+                                  ) / HBM_BYTES_PER_S * 1e3
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        out[name] = row
+    if hasattr(ing, "INGEST_BATCH_ITEMS"):
+        out["batch_items"] = ing.INGEST_BATCH_ITEMS
+    out["plain_ms_neighbouring_256"] = cuda_ms(
+        lambda: sj.db_write_items(params, db, cases["neighbouring_256"] % npr,
+                                  cases["neighbouring_256"] // npr,
+                                  ing.ingest_plain(params, raw[:256])), 2)
+    del db
+    torch.cuda.empty_cache()
+    out["fill"] = bench_fill(torch, sj, params, dev)
+    # profiler times last: a session slows the process's later launches
+    db = torch.zeros(sj.db_shape(params), dtype=torch.int8, device=dev)
+    for name, idxs in cases.items():
+        bins, cols = idxs % npr, idxs // npr
+        out[name]["device_ms_by_kernel"] = device_split(
+            torch, lambda b=bins, c=cols, r=raw[:len(idxs)]: ing.ingest_into(
+                params, db, b, c, r), args.iters)
+        out[name]["device_ms"] = sum(out[name]["device_ms_by_kernel"].values())
+    del db, raw
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_split(torch, fn, iters: int) -> dict:
+    """Mean device ms a call of fn() of each CUDA kernel it launches, by
+    kernel name, from torch.profiler."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us and not e.key.startswith("Memcpy") and not e.key.startswith(
+                "Memset"):
+            m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
+            name = (m.group(1) + (m.group(2) or "")) if m else e.key[:40]
+            out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
+
+
+def bench_fill(torch, sj, params, dev, repeats: int = 2) -> dict:
+    """The full bucket's fill as chip_smoke's phase_full makes it: 32,768
+    random 32 KiB rows (made first, not timed) through the bucket server, a
+    flush every 4,096 (the first stays compact at cap 64, the second
+    migrates through H'), ``repeats`` times on a new bucket each: the wall
+    of the writes and flushes, each flush's wall, the launches and the peak
+    device memory. Then the lifecycle's migrating flush: 3,500 random items
+    flushed into a new bucket, 700 more flushed (it migrates), each flush's
+    wall."""
+    import numpy as np
+    from chip_smoke import random_rows
+    from sdk_tpu_torch import _build
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    gen = np.random.default_rng(SEED + 1)
+    n = params.num_items()
+    step = n // 8
+    rows = random_rows(params, gen, range(n))
+    out = {"wall_s": [], "flush_s": [], "max_memory_allocated": []}
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        srv = SpiralKvServerTorch(params, device=dev)
+        flush_s, layouts = [], []
+        for s in range(0, n, step):
+            for i in range(s, s + step):
+                srv.update_item_raw(i, rows[i])
+            t = time.perf_counter()
+            srv.flush()
+            torch.cuda.synchronize()
+            flush_s.append(time.perf_counter() - t)
+            layouts.append("compact" if isinstance(srv.engine.db,
+                                                   sj.CompactDb) else "dense")
+        out["wall_s"].append(time.perf_counter() - t0)
+        out["flush_s"].append(flush_s)
+        out["max_memory_allocated"].append(
+            torch.cuda.max_memory_allocated(dev))
+        out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if layouts[:2] != ["compact", "dense"]:
+            raise AssertionError(f"fill: want compact then dense, got "
+                                 f"{layouts}")
+        del srv
+    torch.cuda.empty_cache()
+    # the lifecycle's S3 step: 3,500 random items (compact, cap 128), then
+    # 700 more, whose flush migrates the bucket
+    srv = SpiralKvServerTorch(params, device=dev)
+    items = gen.permutation(n)[:4200]
+    for part in (items[:3500], items[3500:]):
+        for i in sorted(part.tolist()):
+            srv.update_item_raw(i, rows[i])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        srv.flush()
+        torch.cuda.synchronize()
+        out.setdefault("s2_s3_flush_s", []).append(time.perf_counter() - t)
+    if isinstance(srv.engine.db, sj.CompactDb):
+        raise AssertionError("S3: the bucket did not migrate")
+    del srv, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_migrate(torch, sj, params, dev, gen, args) -> dict:
+    """Kernel H' on random compact indexes of the 1 GiB bucket: the S2
+    state (cap 128, 3,500 items over the 64 bins at random) and the fill's
+    (cap 64, 4,096 items: 64 a bin), every bin's slots on distinct random
+    dim0 columns and the unoccupied slots full of random bytes; each checked
+    whole against the plain version and timed with CUDA events; in a
+    checkout with the tiled form, its tile and (analytic, not measured) the
+    slot-word bytes it stages."""
+    import numpy as np
+    from chip_smoke import max_abs_err_int8
+    from sdk_tpu_torch.kv import ingest as ing
+
+    npr, dim0 = 1 << params.db_dim_2, 1 << params.db_dim_1
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for name, cap, items in (("S2", 128, 3500), ("fill", 64, 4096)):
+        planes = torch.randint(-128, 128, sj.compact_shape(params, cap),
+                               dtype=torch.int8, device=dev, generator=gen)
+        idx_j = torch.stack([torch.randperm(dim0, device=dev,
+                                            generator=gen)[:cap]
+                             for _ in range(npr)]).to(torch.int32)
+        counts = (np.bincount(rng.integers(0, npr, items), minlength=npr)
+                  if items < npr * cap else np.full(npr, cap))
+        counts = np.minimum(counts, cap)
+        db = sj.CompactDb(planes, idx_j)
+        got = ing.compact_to_dense(params, db, counts)
+        want = ing.compact_to_dense_plain(params, db, counts)
+        err = max_abs_err_int8(got, want)
+        if err:
+            raise AssertionError(f"compact_to_dense {name}: kernel != plain")
+        dense_bytes = got.numel()
+        del got, want
+        occupied = int(counts.sum())
+        crt, z, L, cw, inst, trials, _, _ = planes.shape
+        moved = (dense_bytes + occupied * crt * z * L * inst * trials
+                 + idx_j.numel() * 4 + 4 * npr)
+        row = {"cap": cap, "occupied_slots": occupied,
+               "max_count": int(counts.max()),
+               "ms": cuda_ms(lambda: ing.compact_to_dense(params, db, counts),
+                             args.iters),
+               "plain_ms": cuda_ms(lambda: ing.compact_to_dense_plain(
+                   params, db, counts), 1),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+               "dense_bytes": dense_bytes}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["dense_GBps"] = dense_bytes / row["ms"] / 1e6
+        if hasattr(ing, "migrate_tiling"):
+            tl = ing.migrate_tiling(cw, dim0 // 4, inst * trials, npr,
+                                    int(counts.max()))
+            row["tiling"] = tl._asdict()
+            row["staged_plane_bytes_analytic"] = crt * z * L * tl.cw_used \
+                * 4 * inst * trials * npr
+        out[name] = row
+        del planes, idx_j, db
+        torch.cuda.empty_cache()
+    return out
+
+
 def int_mm_ms(torch, planes, cols: int, iters: int) -> float:
     a = planes.view(-1, 256)
     b = torch.ones((256, cols), dtype=torch.int8, device=planes.device)
@@ -455,10 +687,12 @@ def main() -> int:
     ap.add_argument("--config", default=CHECKLIST,
                     help="the checklist config of --kernel dot")
     ap.add_argument("--kernel", default="dense",
-                    help="dense, compact, dot, or a list of ntt, fold, pack")
+                    help="dense, compact, dot, ingest, migrate, or a list "
+                         "of ntt, fold, pack")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
-    if not (kernels in (["dense"], ["compact"], ["dot"])
+    if not (kernels in (["dense"], ["compact"], ["dot"], ["ingest"],
+                        ["migrate"])
             or set(kernels) <= {"ntt", "fold", "pack"}):
         ap.error(f"--kernel {args.kernel}")
     import torch
@@ -480,6 +714,14 @@ def main() -> int:
     params = get_params_from_store(15, 32768)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    if kernels in (["ingest"], ["migrate"]):
+        stem = {"ingest": "ingest", "migrate": "compact_to_dense"}[args.kernel]
+        bench = {"ingest": bench_ingest, "migrate": bench_migrate}[args.kernel]
+        out = {"card": card, "root": os.path.abspath(args.root),
+               args.kernel: bench(torch, sj, params, dev, gen, args)}
+        out[args.kernel].update(kernel_report(_build, stem))
+        print(json.dumps(out))
+        return 0
     if kernels == ["dot"]:
         out = {"card": card, "root": os.path.abspath(args.root),
                "dot": bench_dot(torch, dev, gen, args)}
