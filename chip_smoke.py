@@ -12,19 +12,23 @@ Phases (any failure exits non-zero, with no result line):
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the CUDA kernels from sdk_tpu_torch/csrc with nvcc, one
    process per source, all at once.
-3. kernels: A, A', B, D and the fused F (fold round), G (pack), H (ingest)
-   against their plain PyTorch versions on the card at the main path's
-   shapes (1 GiB bucket), exactly (integer results, tolerance 0), timed
-   with CUDA events beside their bounds: B at regev_to_gsw's shapes (NQ =
-   1 and 16) and its former ones; A and A' at 8,192 polynomials and
+3. kernels: A, A', B, D, the regev_to_gsw kernel (B redesigned: a batch's
+   folding keys and their negations in one launch) and the fused F (fold
+   round), G (pack), H (ingest) against their plain PyTorch versions on
+   the card at the main path's shapes (1 GiB bucket), exactly (integer
+   results, tolerance 0), timed with CUDA events beside their bounds: the
+   regev_to_gsw kernel at NQ = 1 and 16 on dense and S1 sparse leaves,
+   beside the chain it replaced (A', B, A and the torch glue, then
+   get_v_folding_neg); B (off the read path) at its former shapes; A and
+   A' at 8,192 polynomials and
    at 24 and 6,144 (the expansion's rounds 1 and 9 before kernel E) and
    the read path's 65,536 (the 16-batch's fold input), each checked whole; F at every
    round of a fold at NQ = 1 and 16, every query checked, and the whole
    fold; G in its three output modes (NTT, raw, and the response words of
    pack + from_ntt + encode, the read path's) at NQ = 1 (a cluster of n
    blocks a column) and 16 (one block), every query checked, version 1
-   and version 0, each timed. D (off the read path: G encodes) is still
-   checked and timed.
+   and version 0, each timed. D (off the read path: G encodes) and B
+   (off it since the regev_to_gsw kernel) are still checked and timed.
 4. small configs: whole responses of the port on the card byte-identical to
    the port on the CPU (the plain versions), decoded by the port's Client.
 5. lifecycle: a fresh 1 GiB bucket (2^15 items x 32 KiB) through its three
@@ -46,9 +50,9 @@ Phases (any failure exits non-zero, with no result line):
    keys written, read through private_read and one 16-query batch; C's
    row: R = 2 and 32 on a z-slice and the whole index, share of bound,
    its tilings and the build's registers and spills (-Xptxas -v); the
-   expansion's hand launches for a read and for a 16-batch (equal, at most
-   20: one E a round for the whole batch); the stage split of a single
-   read and a 16-query batch.
+   expansion's hand launches for a read and for a 16-batch (equal,
+   EXPANSION_LAUNCHES: one A, one E a round and one regev_to_gsw for the
+   whole batch); the stage split of a single read and a 16-query batch.
 6b. sharded: the same rows in a bucket whose dense index is cut over a
    (dp=2, db=4) mesh of eight LOGICAL shards of the one card (dim0 128 and
    8 instance-trials a shard); the full bucket's probe blobs, a single read
@@ -67,8 +71,10 @@ Phases (any failure exits non-zero, with no result line):
    /destroy.
 8. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
    the colsum row, with the row-batch select) and L (wrapping u32 products,
-   plain and packed) against their plain versions at the checklist path's
-   shapes, on row slices that int64 can hold. K's tiled form (the hint
+   plain and packed, and its answer form: msg0 = a_1t @ A2 and h_2 = a_1t
+   @ q2 in one launch, at nq = 8 and 1, timed beside the two packed
+   launches it replaced) against their plain versions at the checklist
+   path's shapes, on row slices that int64 can hold. K's tiled form (the hint
    setup's, one int8 tensor-core product a byte plane of the u32 operand)
    is checked on a launch whose last row band is ragged, as the whole
    DB's is, and timed on a 4,224-row sample of H1 beside its int8 and its
@@ -86,17 +92,20 @@ Phases (any failure exits non-zero, with no result line):
    of A1 / A2, H1, the digit-plane glue, the H2 launches and _install_a2,
    with H1's first and last row bands held against the plain version and
    the same hint), 8-query membership batches through the
-   port's client (2 K + 2 L launches an answer): members found, a
+   port's client (2 K + 1 L launches an answer): members found, a
    non-member's bits decode to 0, a tampered query does not decode.
 11. device times: A, A' and F at the shapes of 3, E on every round of
-   a dense expansion at NQ = 1 and 16, K's tiled form on the H1 sample of
-   8, and G in each mode at NQ = 1 and 16
+   a dense expansion at NQ = 1 and 16, the regev_to_gsw kernel and the
+   chain it replaced at NQ = 1 and 16, K's tiled form on the H1 sample
+   and L's answer form (and the two launches before it) of 8, and G in
+   each mode at NQ = 1 and 16
    beside its latency bound (the dependent transforms of pack's dataflow
    times A's and A''s device time on one polynomial pair), from torch.profiler, last, because
    a profiler session slows the launches that follow it.
 12. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
-   10, each must be > 0 but E''s and D's, which no path launches since E
-   and G's out_words mode; a service read and a 16-batch make 25 each),
+   10, each must be > 0 but E''s, D's and B's, which no path launches
+   since E, G's out_words mode and the regev_to_gsw kernel; a service
+   read and a 16-batch make READ_LAUNCHES each),
    memory, wall times, and the kernel table as one
    JSON line; then the card, and as the last line, the device (count 1:
    the mesh of 6b is logical shards of that one card).
@@ -144,14 +153,17 @@ BATCH_WINDOW_MS = 25.0          # the service's read-coalescing window
 # integer operations of one Harvey butterfly, as the A / A' rows count them
 BUTTERFLY_OPS = 6
 # kernels held against their plain versions that no main path launches:
-# E' (expand_round.cu), which kernel E replaced on the expansion path, and D
-# (encode.cu), whose work kernel G does in its out_words mode
-OFF_PATH = ("expand_round", "encode")
-# hand launches of a read of the 1 GiB bucket, the same for a 16-batch: the
-# expansion's 14 (1 A for the query cts, 10 E, regev_to_gsw's A', A and B),
-# the scan, the negated folding keys' A' and A, the fold input's A', 6 F,
-# and 1 G for pack + encode
-READ_LAUNCHES = 25
+# E' (expand_round.cu), which kernel E replaced on the expansion path, D
+# (encode.cu), whose work kernel G does in its out_words mode, and B
+# (matmul_mod.cu), whose work on the read path the regev_to_gsw kernel does
+OFF_PATH = ("expand_round", "encode", "matmul_mod")
+# hand launches of the expansion of a read of the 1 GiB bucket, the same for
+# a 16-batch: 1 A for the query cts, 10 E, 1 regev_to_gsw (the folding keys
+# and their negations)
+EXPANSION_LAUNCHES = 12
+# hand launches of a read, the same for a 16-batch: the expansion's 12, the
+# scan, the fold input's A', 6 F, and 1 G for pack + encode
+READ_LAUNCHES = 21
 
 
 def log(msg: str) -> None:
@@ -537,6 +549,7 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
                 **{f"{k.replace(' ', '_').replace('=', '')}_bound_ms":
                    v["bound_ms"] for k, v in b_bound.items() if k != head})
     del cases
+    check_regev_to_gsw(params, dev, table, gen)
 
     # D: one packed response (instances, n+1, n, z) in [0, Q), with edges
     plan = ResponseEncodePlan(params, dev)
@@ -555,6 +568,169 @@ def phase_kernels(params, dev, table: KernelTable) -> None:
                 cuda_ms(lambda: plan.encode_plain(packed), 3),
                 bound(nbytes(packed) + 4 * plan.num_words,
                       10 * packed.numel(), INT32_OPS_PER_S))
+
+
+def regev_to_gsw_case(params, gen: np.random.Generator, nq: int, dev,
+                      sparse: bool = False):
+    """The regev_to_gsw kernel's inputs at nq queries: the canonical leaves
+    of a dense expansion (or of an S1 sparse one: 100 populated first-dim
+    rows, at most half of them), a GSW leaf of query 0 all zero, each query's keyed conversion
+    key, the GSW leaves' positions and the gadget's NTT."""
+    from sdk_tpu_torch import poly as hpoly
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.modops import shoup_companion_arr, u32_bits
+
+    right = params.t_gsw * params.db_dim_2
+    if sparse:
+        dim0 = 1 << params.db_dim_1
+        pop = gen.choice(dim0, min(100, dim0 // 2), replace=False).tolist()
+        splan = sj.SparseExpansionPlan(params, pop, right, dev)
+        n_leaves = splan.schedule[-1].n_out
+        pos = splan.odd_leaf_pos
+    else:
+        n_leaves = 1 << params.g()
+        pos = torch.arange(1, 2 * right, 2, dtype=torch.int32, device=dev)
+    leaves = residues(params, gen, (nq, n_leaves, 2, 1), dev)
+    leaves[0, int(pos[1])] = 0
+    pps = []
+    for _ in range(nq):
+        w = residues(params, gen, (2, 2 * params.t_conv), dev)
+        pps.append({"v_exp_left": [], "v_exp_right": [], "v_conversion": (
+            w, u32_bits(shoup_companion_arr(
+                params, w.cpu().numpy().astype(np.uint64)), dev))})
+    gadget = u32_bits(hpoly.to_ntt(params, hpoly.build_gadget(
+        params, 2, 2 * params.t_gsw)), dev)
+    return leaves, pos, sj.ExpansionKeys(params, pps), gadget, pps
+
+
+def regev_to_gsw_chain(params, leaves, pos, pps, gadget):
+    """What the engine ran before the regev_to_gsw kernel, through kernels
+    A', A and B and the torch glue: the batch's keys stacked, the GSW
+    leaves gathered, regev_to_gsw, then get_v_folding_neg."""
+    from sdk_tpu_torch.ops import spiral as sj
+
+    v_conv = tuple(torch.stack(k) for k in zip(
+        *(pp["v_conversion"] for pp in pps)))
+    v_inp = leaves.index_select(1, pos.long())
+    raw = sj.from_ntt(params, v_inp)
+    ginv = sj.gadget_digits(params, raw, 2 * params.t_conv, 2)
+    vf = sj._gsw_layout(params, sj.matmul_mod(params, v_conv, sj.to_ntt(
+        params, ginv)), v_inp)
+    return vf, sj.get_v_folding_neg(params, vf, gadget)
+
+
+def regev_to_gsw_bound(params, leaves, pos, gadget) -> dict:
+    """Bytes: the GSW leaves, the keys with their companions and the
+    gadget read once, both outputs written once; operations: 4 inverse and
+    4 t_conv forward one-channel transforms a (query, leaf)."""
+    nq, n_gsw = leaves.shape[0], pos.numel()
+    n = params.poly_len
+    leaf_bytes = 2 * params.crt_count * n * 4
+    out_bytes = 2 * nq * params.db_dim_2 * 2 * 2 * params.t_gsw \
+        * params.crt_count * n * 4
+    moved = nq * n_gsw * leaf_bytes + nq * 2 * 2 * 2 * params.t_conv \
+        * params.crt_count * n * 4 + nbytes(gadget) + out_bytes
+    ops = nq * n_gsw * (4 + 4 * params.t_conv) * (n // 2) \
+        * params.poly_len_log2 * BUTTERFLY_OPS
+    return bound(moved, ops, INT32_OPS_PER_S)
+
+
+def check_regev_to_gsw(params, dev, table: KernelTable,
+                       gen: np.random.Generator) -> None:
+    """The regev_to_gsw kernel against its plain version at NQ = 1 and 16
+    on dense and S1 sparse leaves, timed beside the chain it replaced, its
+    bound, its blocks an SM and the build's registers and spills; the
+    grid (cluster, blocks, waves) is logged, worked out from the tiling."""
+    from sdk_tpu_torch import _build
+    from sdk_tpu_torch.ops import spiral as sj
+
+    name = "regev_to_gsw"
+    n_gsw = params.t_gsw * params.db_dim_2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = _build.lib()["sdk_regev_to_gsw_occupancy"]()
+    extra = {"blocks_per_sm": per_sm,
+             "ptxas": _build.ptxas_usage("regev_to_gsw")}
+    grid = {}                  # configuration and arithmetic, not measured
+    for nq in (16, 1):
+        for sparse in (False, True):
+            leaves, pos, keys, gadget, pps = regev_to_gsw_case(
+                params, gen, nq, dev, sparse)
+            got = sj.regev_to_gsw_neg(params, leaves, pos, keys, gadget)
+            want = sj.regev_to_gsw_neg_plain(params, leaves, pos, keys,
+                                             gadget)
+            label = f"NQ={nq} {'S1 sparse' if sparse else 'dense'} leaves"
+            for g, w in zip(got, want):
+                table.check(name, label, max_abs_err(g, w))
+            del got, want
+            if sparse:
+                continue
+            cluster = sj.regev_to_gsw_tiling(nq * n_gsw, sms)
+            blocks = nq * n_gsw * cluster
+            grid[nq] = (f"NQ={nq} cluster {cluster}, {blocks} blocks, "
+                        + (f"{blocks / (per_sm * sms):.3f} waves"
+                           if per_sm > 0 else "waves unknown"))
+            bnd = regev_to_gsw_bound(params, leaves, pos, gadget)
+            extra.update({
+                f"nq{nq}_ms": cuda_ms(lambda: sj.regev_to_gsw_neg(
+                    params, leaves, pos, keys, gadget), 20),
+                f"nq{nq}_bound_ms": bnd["bound_ms"],
+                f"nq{nq}_bound_by": bnd["bound_by"],
+                f"nq{nq}_chain_ms": cuda_ms(lambda: regev_to_gsw_chain(
+                    params, leaves, pos, pps, gadget), 20)})
+            if nq == 16:
+                head = (leaves, pos, keys, gadget, bnd)
+            else:
+                del leaves, keys, pps
+    leaves, pos, keys, gadget, bnd = head
+    table.timed(
+        name, "sdk_tpu_torch/csrc/regev_to_gsw.cu",
+        "sdk_tpu/ops/spiral_jax.py:787",
+        f"NQ=16: leaves {tuple(leaves.shape)} of a dense expansion, {n_gsw} "
+        f"GSW leaves a query -> folding keys and their negations "
+        f"(16, {params.db_dim_2}, 2, {2 * params.t_gsw}, 2, "
+        f"{params.poly_len}) each; nq1_* one query; nq*_chain_ms the chain "
+        f"it replaced (A', A, B and the torch glue, then get_v_folding_neg "
+        f"at sdk_tpu/ops/spiral_jax.py:809); checked on S1 sparse leaves too",
+        extra["nq16_ms"], cuda_ms(lambda: sj.regev_to_gsw_neg_plain(
+            params, leaves, pos, keys, gadget), 2), bnd, **extra)
+    log(f"[regev_to_gsw] NQ=16 {extra['nq16_ms']:.4f} ms (chain "
+        f"{extra['nq16_chain_ms']:.4f}), NQ=1 {extra['nq1_ms']:.4f} ms (chain "
+        f"{extra['nq1_chain_ms']:.4f}); bound {bnd['bound_ms']:.4f} ms; "
+        f"{per_sm} blocks an SM; {extra['ptxas']}; grid (from the "
+        f"tiling, not measured): {grid[16]}; {grid[1]}")
+    del head, leaves, keys
+    torch.cuda.empty_cache()
+
+
+def regev_to_gsw_device_times(params, dev, table: KernelTable,
+                              gen: np.random.Generator) -> None:
+    """Device time of the regev_to_gsw kernel and of the chain it replaced
+    (every kernel of it) at NQ = 1 and 16; the NQ = 1 latency bound: one
+    inverse and one forward transform of a pair, which every leaf's
+    digits wait for (A' and A on (1, 2, z))."""
+    from sdk_tpu_torch.ops import ntt, spiral as sj
+
+    row = table.rows["regev_to_gsw"]
+    pair = residues(params, gen, (1,), dev)
+    t_fwd = device_ms(lambda: ntt.ntt_forward(params, pair), "ntt_kernel", 20)
+    t_inv = device_ms(lambda: ntt.ntt_inverse(params, pair), "ntt_kernel", 20)
+    row["nq1_latency_bound_ms"] = (None if t_fwd is None or t_inv is None
+                                   else t_fwd + t_inv)
+    for nq in (1, 16):
+        leaves, pos, keys, gadget, pps = regev_to_gsw_case(params, gen, nq,
+                                                           dev)
+        row[f"nq{nq}_device_ms"] = device_ms(
+            lambda: sj.regev_to_gsw_neg(params, leaves, pos, keys, gadget),
+            "regev_to_gsw_kernel", 10)
+        row[f"nq{nq}_chain_device_ms"] = device_ms(
+            lambda: regev_to_gsw_chain(params, leaves, pos, pps, gadget), "",
+            10)
+        del leaves, keys, pps
+    row["device_ms"] = row["nq16_device_ms"]
+    log(f"[device times] regev_to_gsw NQ=1 {row['nq1_device_ms']} ms (chain "
+        f"{row['nq1_chain_device_ms']}, latency bound "
+        f"{row['nq1_latency_bound_ms']}), NQ=16 {row['nq16_device_ms']} ms "
+        f"(chain {row['nq16_chain_device_ms']})")
 
 
 def transform_ops(n_two_channel: int, params) -> int:
@@ -926,6 +1102,37 @@ def k_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
     torch.cuda.empty_cache()
 
 
+def l_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
+    """Device time of L's answer form (msg0 and h_2 in one launch) at the
+    production config, nq = 8 and 1, and of the two packed launches it
+    replaced at nq = 8."""
+    from sdk_tpu_torch.doublepir import kernels as dk
+    from sdk_tpu_torch.doublepir.params import Params
+
+    params = Params.from_string(config)
+    l3 = -(-params.l // 3) * 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    a2p = dev_u32(gen, (l3, params.n), dev)
+    a_1t = dev_u32(gen, (params.delta(), l3 // 3), dev) & 0x3FFFFFFF
+    row = table.rows["dp_matmul_u32"]
+    for nq in (8, 1):
+        q2 = dev_u32(gen, (l3, nq), dev)
+        row[f"answer_nq{nq}_device_ms"] = device_ms(
+            lambda: dk.answer_products(a_1t, a2p, q2), "answer_kernel", 10)
+        if nq == 8:
+            row["answer_parent_nq8_device_ms"] = device_ms(
+                lambda: (dk.mat_mul_vec_packed(a_1t, a2p),
+                         dk.mat_mul_vec_packed(a_1t, q2)),
+                "matmul_u32_kernel", 10)
+    row["device_ms"] = row["answer_nq8_device_ms"]
+    log(f"[device times] L answer form nq=8 {row['answer_nq8_device_ms']} ms "
+        f"(two packed launches before it {row['answer_parent_nq8_device_ms']}"
+        f"), nq=1 {row['answer_nq1_device_ms']} ms")
+    del a2p, a_1t, q2
+    torch.cuda.empty_cache()
+
+
 def ingest_device_times(params, dev, table: KernelTable,
                         gen: np.random.Generator) -> None:
     """H's device time (its transform and sector kernels) at the shapes
@@ -996,8 +1203,10 @@ def phase_device_times(params, dev, table: KernelTable) -> None:
         del cts, keys
     pack_device_times(params, dev, table, gen)
     torch.cuda.empty_cache()
+    regev_to_gsw_device_times(params, dev, table, gen)
     ingest_device_times(params, dev, table, gen)
     k_device_times(dev, table)
+    l_device_times(dev, table)
     row = table.rows["fold_round"]
     log("[device times] torch.profiler: A 8192 polys "
         f"{table.rows['ntt_forward']['device_ms']} ms, A' "
@@ -1410,7 +1619,10 @@ def check_expansion(params, splan, gen, dev, table: KernelTable) -> None:
 
 def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
                     launches: Launches, s1_keys: int = 100,
-                    s2_items: int = 3500, s3_items: int = 4200) -> dict:
+                    s2_items: int = 3500, s3_items: int = 4200,
+                    batches: int = 1) -> dict:
+    """A fresh 1 GiB bucket through S1, S2 and S3 (phase 5), each state
+    read by 3 single reads and ``batches`` 16-query batches."""
     from sdk_tpu_torch.ops import spiral as sj
     from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
 
@@ -1446,7 +1658,7 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
         raise AssertionError("S1: want a compact index with sparse expansion")
     splan = srv.engine._splan
     s1, counts = launches.run(lambda: sessions.drive(
-        srv, uids, keys, values, 0, 3, 1))
+        srv, uids, keys, values, 0, 3, batches))
     if min(counts["scan_compact"], counts["expansion"]) <= 0:
         raise AssertionError(f"S1 reads did not launch I and E: {counts}")
     s1.update(populated_items=len(srv._populated_items),
@@ -1475,7 +1687,7 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
     if not isinstance(db, sj.CompactDb) or srv.engine._splan is not None:
         raise AssertionError("S2: want a compact index, dense expansion")
     s2, counts = launches.run(lambda: sessions.drive(
-        srv, uids, keys, values, 64, 3, 1))
+        srv, uids, keys, values, 64, 3, batches))
     s2.update(populated_items=len(srv._populated_items), cap_bin=db.cap_bin,
               compact_bytes=nbytes(db.planes),
               layout=srv.meta()["index_layout"], launches=counts)
@@ -1531,7 +1743,7 @@ def phase_lifecycle(params, sessions: Sessions, dev, table: KernelTable,
                              f"through H': {mig_counts}")
     peak = torch.cuda.max_memory_allocated(dev)
     s3, counts = launches.run(lambda: sessions.drive(
-        srv, uids, keys, values, 128, 3, 1))
+        srv, uids, keys, values, 128, 3, batches))
     if counts["scan"] <= 0 or counts["scan_compact"] != 0:
         raise AssertionError(f"S3 reads did not scan the dense index: {counts}")
     s3.update(populated_items=len(srv._populated_items),
@@ -1999,9 +2211,12 @@ def stage_breakdown(srv, blobs: list) -> dict:
     read, or a batch: the expansion, then one scan, one fold and one pack +
     encode for all), synchronised per stage (for the breakdown only; the
     launches are not counted). The expand stage ends with the batch's scan
-    columns and folding keys: the engine's expand_queries where it has one,
-    else (a checkout from before it) one expand_query per query and the
-    stack of their columns and keys."""
+    columns and folding keys, and their negations where the engine's
+    expand_queries returns them (else the fold stage makes them with
+    get_v_folding_neg, as the engine did before the regev_to_gsw kernel):
+    the engine's expand_queries where it has one, else (a checkout from
+    before it) one expand_query per query and the stack of their columns
+    and keys."""
     from sdk_tpu_torch.ops import spiral as sj
     from sdk_tpu_torch.ops.shard import fold_columns
 
@@ -2013,9 +2228,13 @@ def stage_breakdown(srv, blobs: list) -> dict:
     for _ in range(5):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        v_neg = None
         if hasattr(eng, "expand_queries"):
-            q_all, v_folds = eng.expand_queries([pp for pp, _ in parsed],
-                                                [q for _, q in parsed])
+            got = eng.expand_queries([pp for pp, _ in parsed],
+                                     [q for _, q in parsed])
+            q_all, v_folds = got[:2]
+            if len(got) > 2:
+                v_neg = got[2]
         else:
             expanded = [eng.expand_query(pp, q) for pp, q in parsed]
             q_all = torch.stack([q for q, _ in expanded], dim=-2)
@@ -2026,10 +2245,11 @@ def stage_breakdown(srv, blobs: list) -> dict:
         inter = sj.firstdim_multiply(eng.params, eng.db, q_all)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        if v_neg is None:
+            v_neg = sj.get_v_folding_neg(eng.params, v_folds, eng.gadget_ntt)
         folded = fold_columns(eng.params,
                               inter.reshape(inter.shape[:-1] + (nq, 2)),
-                              v_folds, sj.get_v_folding_neg(
-                                  eng.params, v_folds, eng.gadget_ntt))
+                              v_folds, v_neg)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         eng._pack_encode(folded, [pp["v_packing"] for pp, _ in parsed])
@@ -2057,7 +2277,8 @@ def check_expansion_launches(params, single: list, batch: list,
     """The expansion's hand launches on the main path (expansion_launches'
     records of the service's n_single reads and n_batch 16-query batches,
     one expansion each): the same for every call, for a read as for a
-    16-batch, g launches of E and at most 20 in all."""
+    16-batch, g launches of E, one of the regev_to_gsw kernel and
+    EXPANSION_LAUNCHES in all."""
     if len(single) != n_single or len(batch) != n_batch:
         raise AssertionError(f"expected {n_single} single and {n_batch} "
                              f"batched expansions, got {len(single)} / "
@@ -2065,9 +2286,11 @@ def check_expansion_launches(params, single: list, batch: list,
     first = single[0]
     if any(c != first for c in single + batch) \
             or first.get("expansion") != params.g() \
-            or sum(first.values()) > 20:
-        raise AssertionError(f"the expansion's launches grow with NQ or "
-                             f"exceed 20: reads {single}, batches {batch}")
+            or first.get("regev_to_gsw") != 1 \
+            or sum(first.values()) != EXPANSION_LAUNCHES:
+        raise AssertionError(f"the expansion's launches grow with NQ or are "
+                             f"not {EXPANSION_LAUNCHES}: reads {single}, "
+                             f"batches {batch}")
     log(f"[service] the expansion's hand launches: {sum(first.values())} for "
         f"a read and for a 16-batch ({first})")
 
@@ -2076,10 +2299,11 @@ def check_read_launches(per_read: dict, per_batch: dict) -> None:
     """A read and a 16-batch of the service make the same READ_LAUNCHES hand
     launches: one G encodes the whole batch, and D is not launched."""
     if per_read != per_batch or sum(per_read.values()) != READ_LAUNCHES \
-            or per_read.get("pack") != 1 or "encode" in per_read:
+            or per_read.get("pack") != 1 or "encode" in per_read \
+            or per_read.get("regev_to_gsw") != 1 or "matmul_mod" in per_read:
         raise AssertionError(f"hand launches: a read {per_read}, a 16-batch "
-                             f"{per_batch}; want {READ_LAUNCHES} each, one G "
-                             f"and no D")
+                             f"{per_batch}; want {READ_LAUNCHES} each, one G, "
+                             f"one regev_to_gsw, no D and no B")
     log(f"[service] hand launches: {READ_LAUNCHES} for a read and for a "
         f"16-batch ({per_read})")
 
@@ -2384,6 +2608,7 @@ def phase_doublepir_kernels(dev, table: KernelTable,
                             config: str = CHECKLIST) -> None:
     """K and L against their plain versions at the checklist path's shapes
     (row slices of the DB and of the digit planes, full K and N)."""
+    from sdk_tpu_torch import _build
     from sdk_tpu_torch.doublepir import kernels as dk, server_torch as st
     from sdk_tpu_torch.doublepir.params import Params
 
@@ -2501,19 +2726,44 @@ def phase_doublepir_kernels(dev, table: KernelTable,
         fn, plain = (dk.mat_mul_vec_packed, dk.matmul_u32_packed_plain) \
             if packed else (dk.matmul_u32, dk.matmul_u32_plain)
         table.check(name, label, max_abs_err(fn(a, b), plain(a, b)))
+    # the answer form: msg0 and h_2 in one launch, nq = 8 and 1
+    q2_1 = dev_u32(gen, (l3, 1), dev)
+    for nq, q in ((8, q2), (1, q2_1)):
+        for g, w in zip(dk.answer_products(a_1t, a2p, q),
+                        dk.answer_products_plain(a_1t, a2p, q)):
+            table.check(name, f"answer form msg0 + h_2, nq={nq}",
+                        max_abs_err(g, w))
+    answer_b = bound(nbytes(a_1t, a2p, q2) + 4 * 4 * (n + 8),
+                     2 * 4 * l3 * (n + 8), INT32_OPS_PER_S)
     table.timed(
         name, "sdk_tpu_torch/csrc/dp_matmul_u32.cu",
         "sdk_tpu/doublepir/jax_kernels.py:35",
-        f"msg0: packed a_1t (4, {l3 // 3}) words of three 10-bit fields @ A2 "
-        f"({l3}, {n}) u32; h_2 (the same a_1t @ ({l3}, 8)) in h2_*",
-        cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, a2p), 20),
-        cuda_ms(lambda: dk.matmul_u32_packed_plain(a_1t, a2p), 3),
-        bound(nbytes(a_1t, a2p) + 4 * 4 * n, 2 * 4 * l3 * n, INT32_OPS_PER_S),
+        f"the answer form (the checklist answer's launch): msg0 = packed "
+        f"a_1t (4, {l3 // 3}) words of three 10-bit fields @ A2 ({l3}, {n}) "
+        f"u32 and h_2 = a_1t @ q2 ({l3}, 8) in one launch (ms, plain_ms: the "
+        f"two plain products, bound_ms: A2 + q2 + a_1t); answer_nq1_* at "
+        f"q2 ({l3}, 1); parent_* the two packed launches before it (msg0_* "
+        f"and h2_* each alone)",
+        cuda_ms(lambda: dk.answer_products(a_1t, a2p, q2), 20),
+        cuda_ms(lambda: dk.answer_products_plain(a_1t, a2p, q2), 3),
+        answer_b,
+        answer_nq1_ms=cuda_ms(lambda: dk.answer_products(a_1t, a2p, q2_1),
+                              20),
+        parent_ms=cuda_ms(lambda: (dk.mat_mul_vec_packed(a_1t, a2p),
+                                   dk.mat_mul_vec_packed(a_1t, q2)), 20),
+        msg0_ms=cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, a2p), 20),
+        msg0_bound_ms=bound(nbytes(a_1t, a2p) + 4 * 4 * n, 2 * 4 * l3 * n,
+                            INT32_OPS_PER_S)["bound_ms"],
         h2_ms=cuda_ms(lambda: dk.mat_mul_vec_packed(a_1t, q2), 20),
         h2_plain_ms=cuda_ms(lambda: dk.matmul_u32_packed_plain(a_1t, q2), 3),
         **{f"h2_{k}": v for k, v in bound(
             nbytes(a_1t, q2) + 4 * 4 * 8, 2 * 4 * l3 * 8,
-            INT32_OPS_PER_S).items()})
+            INT32_OPS_PER_S).items()},
+        answer_blocks=_build.lib()["sdk_dp_answer_blocks"](),
+        answer_ptxas={("vec" if "ILb1E" in k else "scalar"): v for k, v in
+                      _build.ptxas_usage("dp_matmul_u32").items()
+                      if "answer_kernel" in k})
+    del q2_1
 
 
 def planted_bits(gen: np.random.Generator, num_entries: int) -> np.ndarray:
@@ -2727,10 +2977,13 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
     out["client_batch_s"] = time.perf_counter() - t
     planned = sum(e is not None for e in plan)
     raw, counts = launches.run(lambda: srv.answer(qb))
-    if counts["dp_dot_i8"] != 2 or counts["dp_matmul_u32"] != 2:
-        raise AssertionError(f"an answer is 2 K + 2 L launches: {counts}")
+    if counts["dp_dot_i8"] != 2 or counts["dp_matmul_u32"] != 1 \
+            or sum(counts.values()) != 3:
+        raise AssertionError(f"an answer is 2 K + 1 L launches: {counts}")
     table.rows["dp_dot_i8"].update(launches_per_answer=counts["dp_dot_i8"],
                                    launches_per_setup=k_setup)
+    table.rows["dp_matmul_u32"].update(
+        launches_per_answer=counts["dp_matmul_u32"])
     got = decode_plan(client, raw, datas, plan)
     if planned < 5 or got != [1] * planned:
         raise AssertionError(f"member: {planned} planned bits decoded {got}")

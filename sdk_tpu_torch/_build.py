@@ -39,7 +39,7 @@ LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
                             "dp_dot_i8": 0, "dp_matmul_u32": 0,
                             "fold_round": 0, "pack": 0, "ingest": 0,
                             "compact_to_dense": 0, "psum_mod": 0,
-                            "expansion": 0}
+                            "expansion": 0, "regev_to_gsw": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +68,9 @@ _SIGNATURES = {
     "sdk_dp_mma_wrap_probe": ("dp_dot_i8", (_P, _I, _P)),
     "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
                                             _P)),
+    "sdk_dp_answer_u32": ("dp_matmul_u32", (_P, _LL, _I, _P, _I, _P, _P, _I,
+                                            _P, _I, _P)),
+    "sdk_dp_answer_blocks": ("dp_matmul_u32", ()),
     "sdk_fold_round": ("fold_round", (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                       _I, _I, _I, _U, _U, _ULL, _I, _P)),
     "sdk_fold_round_occupancy": ("fold_round", ()),
@@ -83,6 +86,10 @@ _SIGNATURES = {
                                     _P, _P, _P, _I, _I, _I, _I, _ULL, _U, _U,
                                     _ULL, _I, _P)),
     "sdk_expansion_occupancy": ("expansion", ()),
+    "sdk_regev_to_gsw": ("regev_to_gsw", (_P, _P, _LL, _I, _P, _P, _P, _P,
+                                          _P, _I, _I, _I, _I, _U, _U, _ULL,
+                                          _I, _P)),
+    "sdk_regev_to_gsw_occupancy": ("regev_to_gsw", ()),
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,8 @@ PyTorch cannot add or shift ``torch.uint32`` on the CPU). On a CUDA tensor
 the products run kernel L (csrc/dp_matmul_u32.cu: native wrapping 32-bit
 multiply-add, the packed form extracting the 10-bit fields in registers);
 on a CPU tensor they run the plain version beside it, int64 arithmetic
-masked to 32 bits. The JAX module's int8 limb split, its K chunks of 2^16
+masked to 32 bits. The checklist answer's two products of one packed
+operand (``answer_products``) run as one launch of L's answer form. The JAX module's int8 limb split, its K chunks of 2^16
 and its row chunks of the unsquished copy bound int32 limb sums and TPU
 temporaries, and have no counterpart here.
 """
@@ -126,6 +127,64 @@ def mat_mul_transposed_packed(a_packed: torch.Tensor,
                               b: torch.Tensor) -> torch.Tensor:
     """unsquish(a) @ b.T (b: (rb, cols * 3); reference kernels.rs:180-278)."""
     return _dispatch(a_packed, b.t().contiguous(), packed=True)
+
+
+# the fused answer launch's limits (csrc/dp_matmul_u32.cu answer_kernel)
+ANSWER_MAX_ROWS = 8
+ANSWER_MAX_N1 = 256
+
+
+def answer_products_plain(a_packed: torch.Tensor, b0: torch.Tensor,
+                          b1: torch.Tensor):
+    """(unsquish(a) @ b0, unsquish(a) @ b1): the two plain packed
+    products."""
+    return (matmul_u32_packed_plain(a_packed, b0),
+            matmul_u32_packed_plain(a_packed, b1))
+
+
+def _answer_launch(a_packed: torch.Tensor, b0: torch.Tensor,
+                   b1: torch.Tensor):
+    a_packed = a_packed.contiguous()
+    b0 = b0.contiguous()
+    b1 = b1.contiguous()
+    _build.require_cuda(a_packed, b0, b1)
+    M, N0, N1 = a_packed.shape[0], b0.shape[1], b1.shape[1]
+    # one zeroed buffer for both products: one memset, the kernel adds
+    out = torch.zeros(M * (N0 + N1), dtype=torch.int32, device=b0.device)
+    msg0, h = out[:M * N0].view(M, N0), out[M * N0:].view(M, N1)
+    _build.launch("dp_matmul_u32", "sdk_dp_answer_u32", b0.device,
+                  a_packed.data_ptr(), a_packed.shape[1], M, b0.data_ptr(),
+                  N0, msg0.data_ptr(), b1.data_ptr(), N1, h.data_ptr(),
+                  b0.shape[0], _build.stream_of(b0))
+    return msg0, h
+
+
+def answer_products(a_packed: torch.Tensor, b0: torch.Tensor,
+                    b1: torch.Tensor):
+    """unsquish(a) @ b0 and unsquish(a) @ b1 of one packed left operand
+    (the checklist answer's msg0 = a_1t @ A2 and h_2 = a_1t @ q2): on a
+    CUDA tensor one launch of kernel L's answer form (a at most
+    ANSWER_MAX_ROWS rows, b1 at most ANSWER_MAX_N1 columns; wider shapes
+    take two mat_mul_vec_packed launches), on a CPU tensor the plain
+    products."""
+    k = a_packed.shape[1] * SQUISH_DELTA if a_packed.ndim == 2 else -1
+    for b in (b0, b1):
+        if a_packed.dtype != torch.int32 or b.dtype != torch.int32 \
+                or b.ndim != 2 or b.shape[0] != k or b.device != a_packed.device:
+            raise ValueError(
+                f"answer_products takes int32 bit patterns (M, K / 3) packed "
+                f"@ (K, N) on one device, got {a_packed.dtype} "
+                f"{tuple(a_packed.shape)} on {a_packed.device} and {b.dtype} "
+                f"{tuple(b.shape)} on {b.device}")
+    if b0.device.type == "cuda":
+        if a_packed.shape[0] <= ANSWER_MAX_ROWS and \
+                b1.shape[1] <= ANSWER_MAX_N1 and b0.numel() and b1.numel():
+            return _answer_launch(a_packed, b0, b1)
+        return mat_mul_vec_packed(a_packed, b0), mat_mul_vec_packed(a_packed,
+                                                                    b1)
+    if b0.device.type == "cpu":
+        return answer_products_plain(a_packed, b0, b1)
+    raise ValueError(f"unsupported device {b0.device}")
 
 
 def matmul_u32_device(a: np.ndarray, b: np.ndarray,

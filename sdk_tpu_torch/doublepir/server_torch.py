@@ -47,7 +47,7 @@ from ..ops.shard import check_mesh, psum_mod
 from . import scheme
 from .database import DbInfo
 from .debug import print_checksum
-from .kernels import (as_u32_tensor, mat_mul_vec_packed, to_numpy_u32,
+from .kernels import (answer_products, as_u32_tensor, to_numpy_u32,
                       u32_values, u32_wrap, unsquish, wrapping_matmul_plain)
 from .matrix import (SEEDS_SHORT, SQUISH_BASIS, SQUISH_DELTA,
                      derive_from_seed_rows)
@@ -544,8 +544,8 @@ class ChecklistServerTorch:
         """The whole batched answer on the device: the level-1 DB pass with
         the row-batch select (K), the a_1 -> squished-a_1^T glue transform
         (transpose_expand_concat_cols_squish for cols=concat=1: exact digit
-        arithmetic, identical to the host), msg[0] and h_2 (L, packed), and
-        the hint matvec a_2 (K, pair form)."""
+        arithmetic, identical to the host), msg[0] and h_2 (one launch of
+        L's answer form), and the hint matvec a_2 (K, pair form)."""
         a_1 = dot_i8_select(self.db, q1, c=128)                 # (l,)
         return self._answer_rest(a_1, self._a2_pad_dev, self.h1_lo,
                                  self.h1_hi, q2)
@@ -561,9 +561,8 @@ class ChecklistServerTorch:
             digs.append(torch.nn.functional.pad(v % p, (0, pad)))
             v = v // p
         a_1t = _squish_digits(torch.stack(digs))      # (delta, ceil(rows/3))
-        msg0 = mat_mul_vec_packed(a_1t, a2p)
+        msg0, h_2 = answer_products(a_1t, a2p, q2)     # one L launch
         a_2 = dot_i8pair_u32(h1_lo, h1_hi, q2)
-        h_2 = mat_mul_vec_packed(a_1t, q2)
         return msg0, a_2, h_2
 
     def _answer_sharded(self, q1_all: np.ndarray, q2_all: np.ndarray):

@@ -55,15 +55,14 @@ def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
     in flight. The scan's query and output columns; every query's folding
     keys and their negations; the batched expansion, which runs all nq
     queries at once: its two round buffers (a round's input and output, up
-    to 2^g int32 cts a query) and the batched regev_to_gsw's temporaries
-    (per GSW leaf: its inverse NTT and the CRT compose's five int64 rows,
-    the 2 t_conv digit planes with their stack, their reduction and
-    transform, and the key product with its interleaved copies); and the
-    batch's fold input, which is made for all nq queries at once: the scan
-    output regrouped per query, its inverse NTT (int32 residues, three live
-    copies with the regrouping), and the CRT-composed int64 values with the
-    compose's temporaries (five live arrays of that size, the first round's
-    output included). The fused fold and pack kernels keep their digit
+    to 2^g int32 cts a query; the regev_to_gsw kernel reads the last
+    round's GSW leaves in place and writes only the folding keys and their
+    negations, so it adds nothing); and the batch's fold input, which is
+    made for all nq queries at once: the scan output regrouped per query,
+    its inverse NTT (int32 residues, three live copies with the
+    regrouping), and the CRT-composed int64 values with the compose's
+    temporaries (five live arrays of that size, the first round's output
+    included). The fused fold and pack kernels keep their digit
     polynomials in shared memory, so the rounds add nothing."""
     crt, z = params.crt_count, params.poly_len
     dim0 = 1 << params.db_dim_1
@@ -72,12 +71,8 @@ def serving_working_set_bytes(params: Params, nq: int = 16) -> int:
     scan = crt * z * (m + dim0) * 2 * nq * 4
     keys = nq * params.db_dim_2 * 2 * 2 * params.t_gsw * crt * z * 4 * 2
     expand = 2 * nq * (1 << params.g()) * 2 * crt * z * 4
-    tc = params.t_conv
-    gsw = nq * params.t_gsw * params.db_dim_2 * z * (
-        2 * crt * 4 + 5 * 2 * 8 + 2 * 2 * tc * 8 + 2 * tc * crt * 16
-        + 5 * 2 * crt * 4)
     fold = nq * m * 2 * z * (3 * crt * 4 + 5 * 8)
-    return scan + keys + expand + gsw + fold
+    return scan + keys + expand + fold
 
 
 def pp_to_device(params: Params, pp: PublicParameters, device) -> dict:
@@ -114,6 +109,10 @@ class SpiralServerTorch:
             params, params.t_gsw * params.db_dim_2, self.device)
         g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
         self.gadget_ntt = u32_bits(g, self.device)
+        # the GSW leaves' positions among a dense expansion's leaves
+        self._dense_gsw_pos = torch.arange(
+            1, 2 * params.t_gsw * params.db_dim_2, 2, dtype=torch.int32,
+            device=self.device)
         self.encode_plan = ResponseEncodePlan(params, self.device)
         self.db: torch.Tensor | sj.CompactDb | None = None
         self._splan: sj.SparseExpansionPlan | None = None
@@ -182,11 +181,12 @@ class SpiralServerTorch:
                        columns: int | None = None):
         """Expand a batch of queries, each with its own keys: one launch of
         kernel E a round for the whole batch (dense, or the sparse schedule
-        once a populated set is installed) and one regev_to_gsw. Returns
-        the scan columns (crt, z, dim0, 2 * columns), column 2*i + r row r
-        of query i, the columns of queries past the batch (up to
-        ``columns``, default the batch) copies of query 0's; and the
-        folding keys (NQ, db_dim_2, 2, 2*t_gsw, crt, z)."""
+        once a populated set is installed) and one of the regev_to_gsw
+        kernel. Returns the scan columns (crt, z, dim0, 2 * columns),
+        column 2*i + r row r of query i, the columns of queries past the
+        batch (up to ``columns``, default the batch) copies of query 0's;
+        the folding keys (NQ, db_dim_2, 2, 2*t_gsw, crt, z); and their
+        negations (the same shape), which the fold takes beside them."""
         params = self.params
         nq = len(queries)
         columns = columns or nq
@@ -195,7 +195,6 @@ class SpiralServerTorch:
                               .astype(np.int64)).to(self.device)
         ct0 = sj.to_ntt(params, ct)                     # (NQ, 2, 1, crt, n)
         keys = sj.ExpansionKeys(params, pp_devs)
-        right = params.t_gsw * params.db_dim_2
         dim0 = 1 << params.db_dim_1
         splan = self._splan
         leaves = sj.expand_batch(params, self.plan, self._schedule if splan
@@ -203,7 +202,6 @@ class SpiralServerTorch:
         if splan is None:
             stride = 2 if params.db_dim_2 > 0 else 1
             v_reg = leaves[:, 0::stride][:, :dim0]
-            v_gsw = leaves[:, 1::2][:, :right]
             cols = torch.empty((crt, n, dim0, columns, 2), dtype=torch.int32,
                                device=self.device)
             cols[:, :, :, :nq] = v_reg[:, :, :, 0].permute(3, 4, 1, 0, 2)
@@ -212,7 +210,6 @@ class SpiralServerTorch:
             # the unpopulated columns meet only zero DB rows
             # (server_jax.py:279-302)
             v_reg = leaves.index_select(1, splan.even_leaf_pos)
-            v_gsw = leaves.index_select(1, splan.odd_leaf_pos)
             cols = torch.zeros((crt, n, dim0, columns, 2), dtype=torch.int32,
                                device=self.device)
             cols[:, :, splan.even_dim0_idx, :nq] = v_reg[:, :, :, 0].permute(
@@ -220,19 +217,21 @@ class SpiralServerTorch:
         if columns > nq:
             cols[:, :, :, nq:] = cols[:, :, :, :1]
         if params.db_dim_2 > 0:
-            # every query's keyed (w, w') conversion key, stacked
-            v_conv = tuple(torch.stack(k) for k in zip(
-                *(pp["v_conversion"] for pp in pp_devs)))
-            v_folding = sj.regev_to_gsw(params, v_gsw, v_conv)
+            # the GSW leaves read in place, each query's key through the
+            # batch's pointer table
+            pos = self._dense_gsw_pos if splan is None else splan.odd_leaf_pos
+            v_folding, v_neg = sj.regev_to_gsw_neg(
+                params, leaves, pos, keys, self.gadget_ntt)
         else:
             v_folding = torch.zeros((nq, 0, 2, 2 * params.t_gsw, crt, n),
                                     dtype=torch.int32, device=self.device)
-        return cols.reshape(crt, n, dim0, 2 * columns), v_folding
+            v_neg = v_folding
+        return cols.reshape(crt, n, dim0, 2 * columns), v_folding, v_neg
 
     def expand_query(self, pp_dev: dict, query: Query):
         """Query ct -> (scan columns (crt, z, dim0, 2), folding keys
         (db_dim_2, 2, 2*t_gsw, crt, z)): expand_queries of one query."""
-        q_arr, v_folding = self.expand_queries([pp_dev], [query])
+        q_arr, v_folding, _ = self.expand_queries([pp_dev], [query])
         return q_arr, v_folding[0]
 
     def _pack_encode(self, folded: torch.Tensor, v_packings: list):
@@ -253,8 +252,7 @@ class SpiralServerTorch:
         Returns (NQ, words) int32."""
         n_real = len(queries)
         pad_n = 1 << (n_real - 1).bit_length()
-        q_all, v_foldings = self.expand_queries(pps, queries, pad_n)
-        v_neg = sj.get_v_folding_neg(self.params, v_foldings, self.gadget_ntt)
+        q_all, v_foldings, v_neg = self.expand_queries(pps, queries, pad_n)
         if self._sharded is not None:
             folded = self._sharded.scan_fold(self.db, q_all, n_real,
                                              v_foldings, v_neg)

@@ -8,7 +8,11 @@ Ports sdk_tpu/ops/spiral_jax.py. Word-identical to it on the same inputs:
               work list per round that every query shares
               (dense_schedule, sparse_schedule); expansion_round_plain,
               composed of the plain A', E' (csrc/expand_round.cu), A and B,
-              is its plain version
+              is its plain version. Then one launch of the regev_to_gsw
+              kernel (csrc/regev_to_gsw.cu, kernel B redesigned) makes the
+              whole batch's folding keys and their negations
+              (regev_to_gsw_neg; plain: the A', A, B chain of
+              regev_to_gsw_plain and get_v_folding_neg_plain)
   scan      : encrypted-query x DB product over the dense index (kernel C,
               csrc/scan.cu) or the compact index (kernel I,
               csrc/scan_compact.cu)
@@ -25,7 +29,8 @@ DB is one int8 tensor of 7-bit limbs laid out for the scan kernel's loads:
 holds columns 4*jw .. 4*jw+3 (see csrc/scan.cu). The compact DB
 (:class:`CompactDb`) has the same layout with a per-bin slot axis of
 ``cap_bin`` in place of dim0. ``matmul_mod`` is kernel group B
-(csrc/matmul_mod.cu); the NTTs are kernel group A (ops/ntt.py).
+(csrc/matmul_mod.cu; off the read path, which runs its redesign
+csrc/regev_to_gsw.cu); the NTTs are kernel group A (ops/ntt.py).
 """
 
 from __future__ import annotations
@@ -737,9 +742,10 @@ class SparseExpansionPlan:
         leaf_pos = {e: k for k, e in enumerate(live_prev)}
         self.even_leaf_pos = idx(leaf_pos[stride * i] for i in pop)
         self.even_dim0_idx = idx(pop)
+        # int32: the regev_to_gsw kernel reads the GSW leaves by position
         self.odd_leaf_pos = idx(leaf_pos[2 * i + 1]
                                 for i in range(max_bits_to_gen_right)
-                                if params.db_dim_2 > 0)
+                                if params.db_dim_2 > 0).to(torch.int32)
         self.schedule = sparse_schedule(self, device)
 
 
@@ -824,15 +830,18 @@ def sparse_schedule(splan: SparseExpansionPlan,
 
 class ExpansionKeys:
     """Every query's expansion keys for a batch: per query the pp dict's
-    lists of keyed (w, w') (2, t_exp, crt, n) matrices, left and right.
-    Kernel E reads them through a device table of pointers, (rounds, NQ,
-    side, w | w'), made once a batch from a row of pointers cached in each
-    query's key dict."""
+    lists of keyed (w, w') (2, t_exp, crt, n) matrices, left and right, and
+    its keyed conversion key (2, 2 t_conv, crt, n) where it has one.
+    Kernels E and the regev_to_gsw kernel read them through a device table
+    of pointers, (rounds + 1, NQ, side, w | w'), made once a batch from a
+    row of pointers cached in each query's key dict: row r < rounds holds
+    round r's expansion keys, row ``rounds`` side 0 the conversion key."""
 
     def __init__(self, params: Params, pp_devs: list):
         self.params = params
         self.left = [pp["v_exp_left"] for pp in pp_devs]
         self.right = [pp["v_exp_right"] for pp in pp_devs]
+        self.conversion = [pp.get("v_conversion") for pp in pp_devs]
         self._pp_devs = pp_devs
         self._table = None
 
@@ -849,32 +858,38 @@ class ExpansionKeys:
 
     @staticmethod
     def _pointer_row(params: Params, pp: dict) -> np.ndarray:
-        """(rounds, 2, 2) int64 pointers of one query's keys (0 where a side
-        has no key), checked once: keyed int32 (2, t_exp, 2, n), contiguous,
-        16-byte aligned."""
+        """(rounds + 1, 2, 2) int64 pointers of one query's keys (0 where a
+        side has no key), checked once: keyed int32 (2, t_exp, 2, n) and (2,
+        2 t_conv, 2, n), contiguous, 16-byte aligned."""
         row = pp.get("_expansion_key_ptrs")
         if row is not None:
             return row
-        row = np.zeros((params.g(), 2, 2), dtype=np.int64)
-        for side, (name, t_exp) in enumerate(
-                (("v_exp_left", params.t_exp_left),
-                 ("v_exp_right", params.t_exp_right))):
-            for r, key in enumerate(pp[name][:params.g()]):
-                if not isinstance(key, tuple):
-                    raise ValueError("kernel E takes keyed (w, w') expansion "
-                                     "keys")
-                for h, k in enumerate(key):
-                    if (k.dtype != torch.int32 or not k.is_contiguous()
-                            or k.data_ptr() % 16 or tuple(k.shape) != (
-                                2, t_exp, params.crt_count, params.poly_len)):
-                        raise ValueError(f"expansion key {name}[{r}]: "
-                                         f"{k.dtype} {tuple(k.shape)}")
-                    row[r, side, h] = k.data_ptr()
+        g = params.g()
+        row = np.zeros((g + 1, 2, 2), dtype=np.int64)
+        named = [(r, side, f"{name}[{r}]", key, t)
+                 for side, (name, t) in enumerate(
+                     (("v_exp_left", params.t_exp_left),
+                      ("v_exp_right", params.t_exp_right)))
+                 for r, key in enumerate(pp[name][:g])]
+        if pp.get("v_conversion") is not None:
+            named.append((g, 0, "v_conversion", pp["v_conversion"],
+                          2 * params.t_conv))
+        for r, side, name, key, width in named:
+            if not isinstance(key, tuple):
+                raise ValueError(f"{name}: the kernels take keyed (w, w') "
+                                 f"keys")
+            for h, k in enumerate(key):
+                if (k.dtype != torch.int32 or not k.is_contiguous()
+                        or k.data_ptr() % 16 or tuple(k.shape) != (
+                            2, width, params.crt_count, params.poly_len)):
+                    raise ValueError(f"key {name}: {k.dtype} "
+                                     f"{tuple(k.shape)}")
+                row[r, side, h] = k.data_ptr()
         pp["_expansion_key_ptrs"] = row
         return row
 
     def table(self, device) -> torch.Tensor:
-        """int64 (rounds, NQ, 2, 2) pointer table on ``device``."""
+        """int64 (rounds + 1, NQ, 2, 2) pointer table on ``device``."""
         if self._table is None:
             rows = np.stack([self._pointer_row(self.params, pp)
                              for pp in self._pp_devs], axis=1)
@@ -1026,33 +1041,141 @@ def expand_batch(params: Params, plan: ExpansionPlan,
     return cts
 
 
-def regev_to_gsw(params: Params, v_inp: torch.Tensor, v_conv) -> torch.Tensor:
-    """v_inp: (..., num_gsw * t_gsw, 2, 1, crt, n) NTT Regev cts; v_conv:
-    the (..., 2, 2*t_conv, crt, n) key (or its keyed (w, w') pair), its
-    leading dims those of v_inp. Returns (..., num_gsw, 2, 2*t_gsw, crt, n):
-    one from_ntt, one to_ntt and one key product for a whole batch."""
-    lead = v_inp.shape[:-5]
-    raw = from_ntt(params, v_inp)                      # (..., N, 2, 1, n)
-    ginv = gadget_digits(params, raw, 2 * params.t_conv, 2)
-    conv = matmul_mod(params, v_conv, to_ntt(params, ginv))  # (.., N, 2, 1, crt, n)
-    # interleave columns: ct[:, 2j] = conv_j, ct[:, 2j+1] = v_inp_j
+def _gsw_layout(params: Params, conv: torch.Tensor,
+                v_inp: torch.Tensor) -> torch.Tensor:
+    """Key products and inputs (..., num_gsw * t_gsw, 2, 1, crt, n) -> the
+    folding keys (..., num_gsw, 2, 2 t_gsw, crt, n): column 2j the product
+    of leaf j of a GSW ct, column 2j+1 the leaf itself."""
     both = torch.stack([conv, v_inp], dim=-5).reshape(
-        lead + (params.db_dim_2, params.t_gsw * 2, 2, params.crt_count,
-                params.poly_len))
+        v_inp.shape[:-5] + (params.db_dim_2, params.t_gsw * 2, 2,
+                            params.crt_count, params.poly_len))
     return both.transpose(-4, -3).contiguous()
 
 
+def regev_to_gsw_plain(params: Params, v_inp: torch.Tensor,
+                       w_conv: torch.Tensor) -> torch.Tensor:
+    """Regev -> GSW (spiral_jax.regev_to_gsw) from the plain versions of A',
+    A and B only: v_inp (..., num_gsw * t_gsw, 2, 1, crt, n) NTT Regev
+    cts, w_conv the (..., 2, 2*t_conv, crt, n) key words (not their Shoup
+    companions), its leading dims those of v_inp. Returns (..., num_gsw,
+    2, 2*t_gsw, crt, n)."""
+    raw = _from_ntt_plain(params, v_inp)
+    ginv = gadget_digits(params, raw, 2 * params.t_conv, 2)
+    conv = matmul_mod_plain(params, w_conv, _to_ntt_plain(params, ginv))
+    return _gsw_layout(params, conv, v_inp)
+
+
 # ---------------------------------------------------------------------------
-# fold + pack (reference server.rs:388-468, compute/{fold,pack}.rs)
+# Regev -> GSW of a batch's GSW leaves with the negated folding keys: kernel
+# B redesigned (csrc/regev_to_gsw.cu)
 # ---------------------------------------------------------------------------
 
 def get_v_folding_neg(params: Params, v_folding: torch.Tensor,
                       gadget_ntt: torch.Tensor) -> torch.Tensor:
     """v_folding: (db_dim_2, 2, 2*t_gsw, crt, n); gadget_ntt: the NTT of
-    the gadget matrix, (2, 2*t_gsw, crt, n)."""
+    the gadget matrix, (2, 2*t_gsw, crt, n). The reference's chain through
+    from_ntt, Q - x and to_ntt (kernels A' and A on a card)."""
     inv = to_ntt(params, invert_raw_pair(params, from_ntt(params, v_folding)))
     return add_mod(params, gadget_ntt[None], inv)
 
+
+def get_v_folding_neg_plain(params: Params, v_folding: torch.Tensor,
+                            gadget_ntt: torch.Tensor) -> torch.Tensor:
+    """get_v_folding_neg from the plain transforms only. (The
+    regev_to_gsw kernel stores the same words pointwise: Q = q0 q1, so (Q
+    - x) mod q_c = -x mod q_c, and the NTT is linear, so this is (gadget -
+    v) mod q_c for canonical v.)"""
+    inv = _to_ntt_plain(params, invert_raw_pair(
+        params, _from_ntt_plain(params, v_folding)))
+    return add_mod(params, gadget_ntt[None], inv)
+
+
+def regev_to_gsw_tiling(units: int, sms: int) -> int:
+    """The regev_to_gsw kernel's cluster for ``units`` (query, GSW leaf)
+    pairs on a card of ``sms`` SMs (csrc/regev_to_gsw.cu): a pair takes a
+    cluster of 2 256-thread blocks, block `rank` row `rank`'s digits, while
+    the pairs are no more than the SMs (a single read; the blocks then fit
+    one wave at two an SM), else one block."""
+    return 2 if units <= sms else 1
+
+
+def regev_to_gsw_neg_plain(params: Params, leaves: torch.Tensor,
+                           pos: torch.Tensor, keys: ExpansionKeys,
+                           gadget_ntt: torch.Tensor):
+    """The plain version of the regev_to_gsw kernel: the GSW leaves
+    gathered, regev_to_gsw_plain with each query's key and
+    get_v_folding_neg_plain (the transforms, not the pointwise negation)."""
+    if any(k is None for k in keys.conversion):
+        raise ValueError("regev_to_gsw needs every query's conversion key")
+    v_gsw = leaves.index_select(1, pos.to(device=leaves.device,
+                                          dtype=torch.int64))
+    w = torch.stack([k[0] if isinstance(k, tuple) else k
+                     for k in keys.conversion])
+    v_folding = regev_to_gsw_plain(params, v_gsw, w)
+    return v_folding, get_v_folding_neg_plain(params, v_folding, gadget_ntt)
+
+
+def _regev_to_gsw_launch(params: Params, leaves: torch.Tensor,
+                         pos: torch.Tensor, keys: ExpansionKeys,
+                         gadget_ntt: torch.Tensor):
+    """The regev_to_gsw kernel (csrc/regev_to_gsw.cu) on every query of a
+    batch."""
+    n = params.poly_len
+    nq = leaves.shape[0]
+    n_gsw = params.t_gsw * params.db_dim_2
+    if (leaves.dtype != torch.int32 or leaves.ndim != 6
+            or tuple(leaves.shape[2:]) != (2, 1, 2, n)
+            or pos.dtype != torch.int32 or tuple(pos.shape) != (n_gsw,)
+            or gadget_ntt.dtype != torch.int32 or tuple(gadget_ntt.shape)
+            != (2, 2 * params.t_gsw, 2, n) or params.crt_count != 2
+            or params.poly_len_log2 != 11 or len(keys) != nq or n_gsw == 0):
+        raise ValueError(f"regev_to_gsw: leaves {leaves.dtype} "
+                         f"{tuple(leaves.shape)}, positions {pos.dtype} "
+                         f"{tuple(pos.shape)} for {n_gsw} GSW leaves, gadget "
+                         f"{tuple(gadget_ntt.shape)}, {len(keys)} key sets")
+    if any(not isinstance(k, tuple) for k in keys.conversion):
+        raise ValueError("regev_to_gsw takes every query's keyed (w, w') "
+                         "conversion key")
+    leaves = leaves.contiguous()
+    if leaves.data_ptr() % 16:               # 16-byte loads of the leaves
+        leaves = leaves.clone()
+    table = keys.table(leaves.device)
+    tb = ntt_tables(params, leaves.device)
+    _build.require_cuda(leaves, pos, gadget_ntt, table, tb)
+    shape = (nq, params.db_dim_2, 2, 2 * params.t_gsw, 2, n)
+    fold = torch.empty(shape, dtype=torch.int32, device=leaves.device)
+    neg = torch.empty(shape, dtype=torch.int32, device=leaves.device)
+    cluster = regev_to_gsw_tiling(nq * n_gsw, _sm_count(leaves.device))
+    q0, q1 = params.moduli
+    _build.launch("regev_to_gsw", "sdk_regev_to_gsw", leaves.device,
+                  leaves.data_ptr(), pos.data_ptr(), leaves.shape[1], nq,
+                  fold.data_ptr(), neg.data_ptr(), gadget_ntt.data_ptr(),
+                  table.data_ptr() + 8 * table[0].numel() * params.g(),
+                  tb.data_ptr(), n_gsw, params.t_gsw, params.t_conv,
+                  _get_bits_per(params, params.t_conv), q0, q1,
+                  params.inv_q0_mod_q1, cluster, _build.stream_of(leaves))
+    return fold, neg
+
+
+def regev_to_gsw_neg(params: Params, leaves: torch.Tensor, pos: torch.Tensor,
+                     keys: ExpansionKeys, gadget_ntt: torch.Tensor):
+    """Every query's folding keys and their negations from the batch's
+    expansion leaves: leaves int32 (NQ, n_leaves, 2, 1, crt, n) canonical
+    NTT cts, pos int32 (t_gsw * db_dim_2,) the GSW leaves' positions among
+    them, keys the batch's ExpansionKeys (each query's keyed conversion
+    key), gadget_ntt (2, 2 t_gsw, crt, n). Returns (v_folding, v_neg), each
+    (NQ, db_dim_2, 2, 2 t_gsw, crt, n): one launch of the regev_to_gsw
+    kernel on a CUDA tensor, regev_to_gsw_neg_plain on a CPU tensor."""
+    if leaves.device.type == "cuda":
+        return _regev_to_gsw_launch(params, leaves, pos, keys, gadget_ntt)
+    if leaves.device.type == "cpu":
+        return regev_to_gsw_neg_plain(params, leaves, pos, keys, gadget_ntt)
+    raise ValueError(f"unsupported device {leaves.device}")
+
+
+# ---------------------------------------------------------------------------
+# fold + pack (reference server.rs:388-468, compute/{fold,pack}.rs)
+# ---------------------------------------------------------------------------
 
 def _to_ntt_plain(params: Params, raw: torch.Tensor) -> torch.Tensor:
     return ntt_forward_plain(params, reduce_channels(params, raw))

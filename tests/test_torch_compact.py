@@ -252,7 +252,9 @@ def test_batched_sparse_expansion_matches_jax(sparse_batch, pop):
         assert gsw.shape[0] == right
         np.testing.assert_array_equal(gsw, vf_jax[:, :, 1::2].transpose(
             0, 2, 1, 3, 4).reshape(gsw.shape))
-    q_all, v_folding = srv.expand_queries(pps, queries, 4)
+    q_all, v_folding, v_neg = srv.expand_queries(pps, queries, 4)
+    assert torch.equal(v_neg, st.get_v_folding_neg(
+        srv.params, v_folding, srv.gadget_ntt))
     cols = q_all.reshape(q_all.shape[:3] + (4, 2))
     for i, (q_jax, vf_jax) in enumerate(jax):
         np.testing.assert_array_equal(cols[:, :, :, i].numpy(), q_jax)

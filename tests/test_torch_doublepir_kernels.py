@@ -71,6 +71,103 @@ def test_packed_forms_match_jax():
     np.testing.assert_array_equal(back(dk.unsquish(t32(ap), cols * 3 - 1)), un)
 
 
+def test_answer_products_match_jax():
+    """answer_products (the checklist answer's msg0 and h_2 of one packed
+    operand, one launch of L's answer form on a card) on CPU tensors
+    equals the JAX packed product of each operand."""
+    rng = np.random.default_rng(43)
+    ap = matrix.squish(u32(rng, (4, 99), 10))
+    b0, b1 = u32(rng, (99, 16)), u32(rng, (99, 3))
+    prog = jax.jit(jk.mat_mul_vec_packed_traced)
+    got = dk.answer_products(t32(ap), t32(b0), t32(b1))
+    for g, b in zip(got, (b0, b1)):
+        np.testing.assert_array_equal(back(g), np.asarray(prog(ap, b)))
+
+
+# csrc/dp_matmul_u32.cu answer_kernel's constants
+ANS_THREADS, ANS_CHUNK, ANS_CLUSTER = 256, 512, 4
+
+
+def emulate_answer(ap: np.ndarray, b0: np.ndarray, b1: np.ndarray,
+                   clusters: int):
+    """answer_kernel in numpy, block by block: a block's K run of
+    ceil(K / blocks) rows, unsquished ANS_CHUNK rows at a time (field k % 3
+    of word k / 3); thread t's column quads t + 256 pass of b0 (past N0
+    zero), h_2's thread (t % N1, t // N1) over the chunk's rows of its
+    phase; each cluster's partials added word by word by the rank whose
+    quarter holds the word. Returns the outputs mod 2^32, and checks that
+    every row meets each product once and every output word gets one add
+    a cluster."""
+    M, W = ap.shape
+    K, N0, N1 = 3 * W, b0.shape[1], b1.shape[1]
+    blocks = clusters * ANS_CLUSTER
+    rpb = -(-K // blocks)
+    passes = -(-(-(-N0 // 4)) // ANS_THREADS)
+    p1 = ANS_THREADS // N1
+    mask = np.uint64(0xFFFFFFFF)
+    b0w = np.zeros((K, passes * 4 * ANS_THREADS), dtype=np.uint64)
+    b0w[:, :N0] = b0
+    out0 = np.zeros((M, N0), dtype=np.uint64)
+    out1 = np.zeros((M, N1), dtype=np.uint64)
+    rows0 = np.zeros(K, dtype=np.int64)
+    rows1 = np.zeros(K, dtype=np.int64)
+    adds = np.zeros((M, N0), dtype=np.int64)
+    for cl in range(clusters):
+        parts = np.zeros((ANS_CLUSTER, passes, M, 1024), dtype=np.uint64)
+        for rank in range(ANS_CLUSTER):
+            k0 = (cl * ANS_CLUSTER + rank) * rpb
+            nrows = max(0, min(K - k0, rpb))
+            hsum = np.zeros((M, N1), dtype=np.uint64)
+            for p in range(passes):
+                for i0 in range(0, nrows, ANS_CHUNK):
+                    k = np.arange(k0 + i0, k0 + min(nrows, i0 + ANS_CHUNK))
+                    words = ap[:, k // 3].astype(np.uint64)
+                    a = (words >> (10 * (k % 3)).astype(np.uint64)) & 1023
+                    cols = slice(1024 * p, 1024 * (p + 1))
+                    parts[rank, p] = (parts[rank, p] + a @ b0w[k, cols]) & mask
+                    rows0[k] += p == 0
+                    for ph in range(p1 if p == 0 else 0):
+                        r = np.arange(ph, len(k), p1)   # thread ph's rows
+                        rows1[k[r]] += 1
+                        hsum = (hsum + a[:, r] @ b1[k[r]].astype(
+                            np.uint64)) & mask
+            out1 = (out1 + hsum) & mask
+        for p in range(passes):
+            words = M * 1024
+            for rank in range(ANS_CLUSTER):
+                w = np.arange(rank * words // ANS_CLUSTER,
+                              (rank + 1) * words // ANS_CLUSTER)
+                m, col = w // 1024, 1024 * p + w % 1024
+                keep = col < N0
+                s = parts[:, p, m[keep], w[keep] % 1024].sum(0) & mask
+                out0[m[keep], col[keep]] = (out0[m[keep], col[keep]] + s) & mask
+                adds[m[keep], col[keep]] += 1
+    assert (rows0 == 1).all() and (rows1 == 1).all()
+    assert (adds == clusters).all()
+    return out0.astype(U32), out1.astype(U32)
+
+
+@pytest.mark.parametrize("shape", [(4, 3003, 8, 8, 2), (4, 6003, 1024, 3, 1),
+                                   (8, 6003, 1030, 5, 3), (2, 9, 4, 1, 1)])
+def test_answer_kernel_model_matches_plain(shape):
+    """The numpy model of the answer launch against the two plain packed
+    products: K runs that start mid-word and are no multiple of the
+    unsquish chunk (3003 rows over 8 blocks: 376 a block; 6003 over 4:
+    1,501 in three chunks), N0 = 8 beside 1024 and 1030 (two passes of
+    1024 columns, the last quad part past N0), N1 not dividing 256, blocks
+    with no rows (9 rows over 4 blocks), and the last packed word's three
+    fields at their maximum."""
+    M, K, N0, N1, clusters = shape
+    rng = np.random.default_rng(44)
+    ap = u32(rng, (M, K // 3), 30)
+    ap[:, -1] = 1023 | 1023 << 10 | 1023 << 20
+    b0, b1 = u32(rng, (K, N0)), u32(rng, (K, N1))
+    got = emulate_answer(ap, b0, b1, clusters)
+    want = dk.answer_products_plain(t32(ap), t32(b0), t32(b1))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, back(w))
+
+
 @pytest.mark.parametrize("shape", [(7, 1003, 3), (9, 130, 8)])
 def test_dot_i8_matches_jax(shape):
     M, K, N = shape
@@ -152,6 +249,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         dk.matmul_u32(torch.zeros((2, 6), dtype=torch.int32, device="meta"),
                       b.to("meta"))
+    with pytest.raises(ValueError):
+        dk.answer_products(torch.zeros((4, 2), dtype=torch.int32), b, b[:5])
+    with pytest.raises(ValueError):
+        dk._answer_launch(torch.zeros((4, 2), dtype=torch.int32), b, b)
 
 
 def test_cpu_tensors_build_and_launch_nothing(monkeypatch):
@@ -165,6 +266,8 @@ def test_cpu_tensors_build_and_launch_nothing(monkeypatch):
     st.dot_i8_select(a, t32(u32(rng, (9, 2))))
     dk.matmul_u32(t32(u32(rng, (5, 9))), t32(u32(rng, (9, 2))))
     dk.mat_mul_vec_packed(t32(u32(rng, (5, 3), 30)), t32(u32(rng, (9, 2))))
+    dk.answer_products(t32(u32(rng, (5, 3), 30)), t32(u32(rng, (9, 2))),
+                       t32(u32(rng, (9, 1))))
     assert _build.LAUNCHES == before
     assert {"dp_dot_i8", "dp_matmul_u32"} <= set(before)
 

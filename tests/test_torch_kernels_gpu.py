@@ -355,6 +355,73 @@ def test_expansion_matches_plain(cuda, params, nq):
     torch.cuda.synchronize()
 
 
+# t_conv 1 (57-bit digits, reduced before the transform) and 2 (29-bit)
+R2G_T1 = params_from_json(
+    '{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 22, "t_gsw": 3,'
+    ' "t_conv": 1, "t_exp_left": 5, "t_exp_right": 5, "instances": 1,'
+    ' "version": 1}')
+R2G_T2 = params_from_json(
+    '{"n": 2, "nu_1": 2, "nu_2": 3, "p": 256, "q2_bits": 22, "t_gsw": 5,'
+    ' "t_conv": 2, "t_exp_left": 5, "t_exp_right": 5, "instances": 1,'
+    ' "version": 1}')
+
+
+def _gsw_key_sets(params, rng, nq, device):
+    """_expansion_key_sets with each set's keyed conversion key."""
+    from sdk_tpu_torch.ops.modops import shoup_companion_arr, u32_bits
+
+    sets = _expansion_key_sets(params, rng, nq, device)
+    for d in sets:
+        m = residues(rng, (2, 2 * params.t_conv), params).numpy().astype(
+            np.uint64)
+        d["v_conversion"] = (u32_bits(m, device), u32_bits(
+            shoup_companion_arr(params, m), device))
+    return sets
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("params", ["t_conv4", "t_conv3", "t_conv2",
+                                    "t_conv1", "1gib"])
+def test_regev_to_gsw_matches_plain(cuda, params, nq):
+    """The regev_to_gsw kernel (a batch's folding keys and their negations
+    in one launch) against regev_to_gsw_neg_plain (the A', A, B chain and
+    the transform-based negation) on the card: dense leaf positions and
+    scattered ones (a sparse expansion's), a query whose leaves are all
+    zero (a leaf of the one query at nq = 1), q_c - 1 words planted; at the
+    tiling the batch takes (a cluster of 2 blocks a leaf while the leaves
+    are no more than the SMs, one block at the 1 GiB bucket's NQ = 16)."""
+    from sdk_tpu_torch import poly as hpoly
+    from sdk_tpu_torch.ops.modops import u32_bits
+    from sdk_tpu_torch.params_store import get_params_from_store
+
+    params = {"t_conv4": PARAMS, "t_conv3": V1_TINY, "t_conv2": R2G_T2,
+              "t_conv1": R2G_T1,
+              "1gib": get_params_from_store(15, 32768)}[params]
+    rng = np.random.default_rng(61 + nq)
+    n_gsw = params.t_gsw * params.db_dim_2
+    n_leaves = 2 * n_gsw + 3
+    keys = sj.ExpansionKeys(params, _gsw_key_sets(params, rng, nq, cuda))
+    leaves = residues(rng, (nq, n_leaves, 2, 1), params)
+    if nq > 1:
+        leaves[1] = 0
+    else:
+        leaves[0, 3] = 0
+    for c, q in enumerate(params.moduli):
+        leaves[0, 1, :, :, c, :16] = q - 1
+    leaves = leaves.to(cuda)
+    gadget = u32_bits(hpoly.to_ntt(params, hpoly.build_gadget(
+        params, 2, 2 * params.t_gsw)), cuda)
+    for pos in (torch.arange(1, 2 * n_gsw, 2),
+                torch.from_numpy(rng.permutation(n_leaves)[:n_gsw])):
+        pos = pos.to(device=cuda, dtype=torch.int32)
+        want = sj.regev_to_gsw_neg_plain(params, leaves, pos, keys, gadget)
+        _build.reset_launches()
+        got = sj.regev_to_gsw_neg(params, leaves, pos, keys, gadget)
+        assert _build.LAUNCHES["regev_to_gsw"] == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
 def test_encode_matches_plain(cuda):
     rng = np.random.default_rng(4)
     plan_cpu = ResponseEncodePlan(PARAMS, "cpu")
@@ -638,9 +705,10 @@ def test_full_protocol_on_card(cuda):
         client_j.PublicParameters.deserialize(params_h, pp.serialize(params)),
         client_j.Query.deserialize(params_h, query.serialize(params)), db)
     assert all(counts[k] > 0 for k in ("ntt_forward", "ntt_inverse",
-                                       "matmul_mod", "scan", "pack",
+                                       "regev_to_gsw", "scan", "pack",
                                        "expansion")), counts
     assert counts["expansion"] == params.g() and counts["expand_round"] == 0
+    assert counts["regev_to_gsw"] == 1 and counts["matmul_mod"] == 0, counts
     assert counts["pack"] == 1 and counts["encode"] == 0, counts
 
 
@@ -712,6 +780,7 @@ def test_batched_engine_on_card_equals_cpu(cuda):
     assert counts["fold_round"] == params.db_dim_2 and counts["pack"] == 1
     assert counts["encode"] == 0 and counts["scan"] == 1, counts
     assert counts["expansion"] == params.g(), counts     # a round, not a query
+    assert counts["regev_to_gsw"] == 1, counts            # a batch
     for k in range(3):
         row = np.random.default_rng(items[3 + k]).integers(
             0, 256, row_len, dtype=np.uint8).tobytes()
@@ -753,6 +822,41 @@ def test_dp_matmul_u32_packed_matches_plain(cuda, shape):
     bt = b.t().contiguous()
     assert torch.equal(
         dk.mat_mul_transposed_packed(ap.to(cuda), bt.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(4, 92682, 1024, 8), (4, 92682, 1024, 1),
+                                   (4, 3003, 64, 3), (8, 999, 1024, 256),
+                                   (1, 3, 4, 1), (3, 30003, 7, 5),
+                                   (5, 6147, 2050, 9), (6, 30000, 2048, 4),
+                                   (4, 9000, 1024, 8, "unaligned"),
+                                   (9, 999, 64, 8), (4, 999, 64, 257)])
+def test_dp_answer_products_match_plain(cuda, shape):
+    """L's answer form (msg0 and h_2 of one packed operand in one launch)
+    against the two plain packed products on the card: the production
+    checklist's shapes (K = 92682, A2 1024 columns, nq 8 and 1), rows of
+    K / 3 words, N0 not a multiple of 4, N0 past one pass of 1024 columns,
+    b1 at its 256-column limit, and a b0 off a 16-byte boundary (4-byte
+    copies); past the form's 8 rows or 256 b1 columns, two
+    mat_mul_vec_packed launches."""
+    from sdk_tpu_torch.doublepir import kernels as dk
+
+    M, K, N0, N1 = shape[:4]
+    rng = np.random.default_rng(13)
+    ap = _u32(rng, (M, K // 3), bits=30).to(cuda)
+    b0 = _u32(rng, (K, N0)).to(cuda)
+    if len(shape) > 4:
+        flat = torch.empty(K * N0 + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = b0.flatten()
+        b0 = flat[1:].view(K, N0)
+        assert b0.data_ptr() % 16
+    b1 = _u32(rng, (K, N1)).to(cuda)
+    want = dk.answer_products_plain(ap, b0, b1)
+    _build.reset_launches()
+    got = dk.answer_products(ap, b0, b1)
+    one = M <= dk.ANSWER_MAX_ROWS and N1 <= dk.ANSWER_MAX_N1
+    assert _build.LAUNCHES["dp_matmul_u32"] == (1 if one else 2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("pair", [False, True])
@@ -911,7 +1015,7 @@ def test_checklist_on_card_equals_cpu(cuda, config):
         _build.reset_launches()
         got = servers[0].answer(queries)
         assert _build.LAUNCHES["dp_dot_i8"] == 2
-        assert _build.LAUNCHES["dp_matmul_u32"] == 2
+        assert _build.LAUNCHES["dp_matmul_u32"] == 1   # msg0 and h_2 in one
         for g, w in zip(got, servers[1].answer(queries)):
             np.testing.assert_array_equal(g, w)
 

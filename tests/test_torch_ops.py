@@ -227,7 +227,9 @@ def test_batched_expansion_matches_jax(expansion_batch):
     GSW leaves the odd columns of its folding keys: regev_to_gsw
     interleaves them verbatim); the engine's expand_queries, padded to
     four column pairs, equals the JAX engine's expand_query of each query
-    and repeats query 0's columns; expand_query is its one-query case."""
+    and repeats query 0's columns, its negated folding keys the
+    transform chain's (get_v_folding_neg); expand_query is its one-query
+    case."""
     from sdk_tpu_torch.ops.server import SpiralServerTorch
 
     params = EXP_TINY
@@ -251,7 +253,9 @@ def test_batched_expansion_matches_jax(expansion_batch):
         gsw = leaves[i, 1:2 * right:2, :, 0].numpy()     # (right, 2, crt, n)
         np.testing.assert_array_equal(gsw, vf_jax[:, :, 1::2].transpose(
             0, 2, 1, 3, 4).reshape(gsw.shape))
-    q_all, v_folding = srv.expand_queries(pps, queries, 4)
+    q_all, v_folding, v_neg = srv.expand_queries(pps, queries, 4)
+    assert torch.equal(v_neg, st.get_v_folding_neg(
+        srv.params, v_folding, srv.gadget_ntt))
     cols = q_all.reshape(q_all.shape[:3] + (4, 2))
     for i, (q_jax, vf_jax) in enumerate(expansion_batch["jax"]):
         np.testing.assert_array_equal(cols[:, :, :, i].numpy(), q_jax)

@@ -122,14 +122,16 @@ def test_default_mesh_takes_distinct_cuda_devices():
 
 def replay_expansions(expanded: dict):
     """An engine's expand_queries answered from the queries' cached
-    expansions (id(query) -> expand_query's scan columns and folding keys),
-    laid out as the engine lays out a batch (padding columns query 0's)."""
+    expansions (id(query) -> expand_queries' scan columns, folding keys and
+    their negations for that query alone), laid out as the engine lays out
+    a batch (padding columns query 0's)."""
     def expand_queries(_pps, queries, columns=None):
         cols = [expanded[id(q)][0] for q in queries]
         cols += cols[:1] * ((columns or len(cols)) - len(cols))
         q_all = torch.stack(cols, dim=-2)
         return (q_all.reshape(q_all.shape[:3] + (-1,)),
-                torch.stack([expanded[id(q)][1] for q in queries]))
+                torch.cat([expanded[id(q)][1] for q in queries]),
+                torch.cat([expanded[id(q)][2] for q in queries]))
     return expand_queries
 
 
@@ -160,7 +162,7 @@ def engine_case():
     single = SpiralServerTorch(FAST, "cpu")
     single.set_db(dense)
     pp_dev = single._pp_dev(pp)
-    expanded = {id(q): single.expand_query(pp_dev, q) for q in queries}
+    expanded = {id(q): single.expand_queries([pp_dev], [q]) for q in queries}
     single.expand_queries = replay_expansions(expanded)
     batch = single.dispatch_queries_batched([(pp_dev, q) for q in queries])()
     db_h = oracle_db(FAST, rows)

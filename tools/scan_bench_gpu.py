@@ -6,7 +6,7 @@ bucket's full size; or kernels A / A' (the NTT), F (the fold round) or G
 or the write path's H and H'.
 
     python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack|dot
-                                              |ingest|migrate]
+                                              |ingest|migrate|r2g|answer]
                                     [--root DIR] [--sweep] [--iters N]
                                     [--columns 2,32] [--config CHECKLIST]
 
@@ -55,6 +55,23 @@ and the production setup's wall split and peak memory on the same DB; in
 a checkout with the tensor-core form also the answer's a_2 shape in the
 tiled form beside the rows form (``bench_dot``). Its tiling is fixed, so
 ``--sweep`` adds nothing there.
+
+``--kernel r2g`` times the read path's Regev -> GSW conversion with the
+negated folding keys at NQ = 1 and 16 on random canonical leaves of a
+dense expansion, each query with its own keyed conversion key: in a
+checkout with the regev_to_gsw kernel its one launch (``regev_to_gsw_neg``),
+else the chain the engine ran before it (the keys' stack, A', the torch
+compose and digits, A, B, the folding-key layout, then
+``get_v_folding_neg``: A', Q - x, A, add_mod), each checked against the
+chain's plain pieces (present in both), with CUDA events over the stage
+and each kernel's profiler device time, beside the byte bound and, at NQ
+= 1, the latency bound of one dependent inverse and forward transform
+(A' and A on one polynomial pair, device time). ``--kernel answer``
+times the checklist answer's msg0 = a_1t @ A2 and h_2 = a_1t @ q2 at the
+production config (``--config``), nq = 8 and 1: L's fused answer launch
+(``answer_products``) or, before it, two ``mat_mul_vec_packed`` launches,
+checked against the plain products, events and device times beside the
+bound (A2 + q2 + a_1t read once).
 
 ``--kernel ingest`` times kernel H (the write path's ingest) on a
 full-size 8.59 GB dense index: 256 and 1,024 neighbouring items and 256
@@ -462,6 +479,145 @@ def bench_ingest(torch, sj, params, dev, gen, args) -> dict:
     return out
 
 
+def bench_r2g(torch, params, dev, gen, args) -> dict:
+    """The Regev -> GSW conversion and the negated folding keys of a batch
+    at NQ = 1 and 16: the regev_to_gsw kernel, or the parent's chain."""
+    import numpy as np
+
+    from sdk_tpu_torch import poly as hpoly
+    from sdk_tpu_torch.ops import ntt
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.modops import add_mod, shoup_companion_arr, u32_bits
+
+    fused = hasattr(sj, "regev_to_gsw_neg")
+    n, T, D = params.poly_len, params.t_gsw, params.db_dim_2
+    n_gsw, tc2 = T * D, 2 * params.t_conv
+    gadget = u32_bits(hpoly.to_ntt(params, hpoly.build_gadget(
+        params, 2, 2 * T)), dev)
+    one = torch.stack([torch.randint(0, q, (1, n), dtype=torch.int32,
+                                     device=dev, generator=gen)
+                       for q in params.moduli], dim=1)
+    a_inv = device_ms(lambda: ntt.ntt_inverse(params, one), "ntt_kernel",
+                      args.iters)
+    a_fwd = device_ms(lambda: ntt.ntt_forward(params, one), "ntt_kernel",
+                      args.iters)
+
+    def chain_plain(v_gsw, w):
+        raw = sj._from_ntt_plain(params, v_gsw)
+        conv = sj.matmul_mod_plain(params, w, sj._to_ntt_plain(
+            params, sj.gadget_digits(params, raw, tc2, 2)))
+        vf = torch.stack([conv, v_gsw], dim=-5).reshape(
+            v_gsw.shape[:-5] + (D, 2 * T, 2, 2, n)).transpose(-4, -3)
+        inv = sj._to_ntt_plain(params, sj.invert_raw_pair(
+            params, sj._from_ntt_plain(params, vf)))
+        return vf.contiguous(), add_mod(params, gadget[None], inv)
+
+    out = {"fused": fused, "a_inverse_one_pair_device_ms": a_inv,
+           "a_forward_one_pair_device_ms": a_fwd}
+    for nq in (1, 16):
+        leaves = torch.stack([torch.randint(
+            0, q, (nq, 2 * n_gsw, 2, 1, n), dtype=torch.int32, device=dev,
+            generator=gen) for q in params.moduli], dim=-2)
+        pps = []
+        for _ in range(nq):
+            w = torch.stack([torch.randint(0, q, (2, tc2, n),
+                                           dtype=torch.int32, device=dev,
+                                           generator=gen)
+                             for q in params.moduli], dim=-2)
+            ws = u32_bits(shoup_companion_arr(
+                params, w.cpu().numpy().astype(np.uint64)), dev)
+            pps.append({"v_exp_left": [], "v_exp_right": [],
+                        "v_conversion": (w, ws)})
+        want = chain_plain(leaves[:, 1::2], torch.stack(
+            [pp["v_conversion"][0] for pp in pps]))
+        if fused:
+            keys = sj.ExpansionKeys(params, pps)
+            pos = torch.arange(1, 2 * n_gsw, 2, dtype=torch.int32,
+                               device=dev)
+
+            def stage():
+                return sj.regev_to_gsw_neg(params, leaves, pos, keys, gadget)
+        else:
+            def stage():
+                v_gsw = leaves[:, 1::2][:, :n_gsw]
+                v_conv = tuple(torch.stack(k) for k in zip(
+                    *(pp["v_conversion"] for pp in pps)))
+                vf = sj.regev_to_gsw(params, v_gsw, v_conv)
+                return vf, sj.get_v_folding_neg(params, vf, gadget)
+        got = stage()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"regev_to_gsw NQ={nq}: kernel != plain")
+        moved = (leaves[:, 1::2].numel() * 4 + nq * 2 * 2 * tc2 * 2 * n * 4
+                 + gadget.numel() * 4 + 2 * want[0].numel() * 4)
+        ops = nq * n_gsw * (4 + 2 * tc2) * (n // 2) * 11 * BUTTERFLY_OPS
+        bnd = max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        split = device_split(torch, stage, args.iters)
+        row = {"ms": cuda_ms(stage, args.iters), "device_split_ms": split,
+               "device_ms": sum(split.values()), "bound_ms": bnd,
+               "bytes": moved, "bound_by": "bytes" if moved / HBM_BYTES_PER_S
+               >= ops / INT32_OPS_PER_S else "operations"}
+        if nq == 1 and a_inv and a_fwd:
+            row["latency_bound_ms"] = a_inv + a_fwd
+        if fused:                    # configuration, not measured
+            row["cluster"] = sj.regev_to_gsw_tiling(
+                nq * n_gsw, sj._sm_count(dev))
+        out[f"nq{nq}"] = row
+        del leaves, pps, want, got
+    return out
+
+
+def bench_answer(torch, dev, gen, args) -> dict:
+    """The checklist answer's msg0 and h_2 at nq = 8 and 1: L's fused
+    answer launch, or the parent's two packed launches."""
+    from sdk_tpu_torch.doublepir import kernels as dk
+    from sdk_tpu_torch.doublepir.params import Params
+
+    dp = Params.from_string(args.config)
+    l3 = -(-dp.l // 3) * 3
+    delta = dp.delta()
+    fused = hasattr(dk, "answer_products")
+
+    def u32(shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
+                             device=dev, generator=gen).to(torch.int32)
+
+    a2 = u32((l3, dp.n))
+    a_1t = u32((delta, l3 // 3)) & 0x3FFFFFFF
+    out = {"fused": fused, "delta": delta, "K": l3, "N": dp.n}
+    for nq in (8, 1):
+        q2 = u32((l3, nq))
+        if fused:
+            def stage():
+                return dk.answer_products(a_1t, a2, q2)
+        else:
+            def stage():
+                return (dk.mat_mul_vec_packed(a_1t, a2),
+                        dk.mat_mul_vec_packed(a_1t, q2))
+        want = (dk.matmul_u32_packed_plain(a_1t, a2),
+                dk.matmul_u32_packed_plain(a_1t, q2))
+        got = stage()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"answer products nq={nq}: kernel != plain")
+        moved = (a2.numel() + q2.numel() + a_1t.numel()
+                 + delta * (dp.n + nq)) * 4
+        ops = 2 * delta * l3 * (dp.n + nq)
+        bnd = max(moved / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        split = device_split(torch, stage, args.iters)
+        dev_ms = sum(v for k, v in split.items()
+                     if "matmul_u32" in k or "answer" in k)
+        out[f"nq{nq}"] = {"ms": cuda_ms(stage, args.iters),
+                          "device_split_ms": split, "device_ms": dev_ms,
+                          "stage_device_ms": sum(split.values()),
+                          "bound_ms": bnd, "share_of_bound": bnd / dev_ms
+                          if dev_ms else None}
+        del q2, want, got
+    from sdk_tpu_torch import _build
+
+    fn = _build.lib().get("sdk_dp_answer_blocks")
+    out["answer_blocks"] = fn() if fn is not None else None
+    return out
+
+
 def device_split(torch, fn, iters: int) -> dict:
     """Mean device ms a call of fn() of each CUDA kernel it launches, by
     kernel name, from torch.profiler."""
@@ -687,12 +843,12 @@ def main() -> int:
     ap.add_argument("--config", default=CHECKLIST,
                     help="the checklist config of --kernel dot")
     ap.add_argument("--kernel", default="dense",
-                    help="dense, compact, dot, ingest, migrate, or a list "
-                         "of ntt, fold, pack")
+                    help="dense, compact, dot, ingest, migrate, r2g, "
+                         "answer, or a list of ntt, fold, pack")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
     if not (kernels in (["dense"], ["compact"], ["dot"], ["ingest"],
-                        ["migrate"])
+                        ["migrate"], ["r2g"], ["answer"])
             or set(kernels) <= {"ntt", "fold", "pack"}):
         ap.error(f"--kernel {args.kernel}")
     import torch
@@ -720,6 +876,22 @@ def main() -> int:
         out = {"card": card, "root": os.path.abspath(args.root),
                args.kernel: bench(torch, sj, params, dev, gen, args)}
         out[args.kernel].update(kernel_report(_build, stem))
+        print(json.dumps(out))
+        return 0
+    if kernels == ["r2g"]:
+        out = {"card": card, "root": os.path.abspath(args.root),
+               "r2g": bench_r2g(torch, params, dev, gen, args)}
+        stem = "regev_to_gsw" if out["r2g"]["fused"] else "matmul_mod"
+        out["r2g"].update(kernel_report(_build, stem))
+        occ = _build.lib().get("sdk_regev_to_gsw_occupancy")
+        if occ is not None:
+            out["r2g"]["blocks_per_sm"] = occ()
+        print(json.dumps(out))
+        return 0
+    if kernels == ["answer"]:
+        out = {"card": card, "root": os.path.abspath(args.root),
+               "answer": bench_answer(torch, dev, gen, args)}
+        out["answer"].update(kernel_report(_build, "dp_matmul_u32"))
         print(json.dumps(out))
         return 0
     if kernels == ["dot"]:
