@@ -74,7 +74,8 @@ Phases (any failure exits non-zero, with no result line):
    plain and packed, and its answer form: msg0 = a_1t @ A2 and h_2 = a_1t
    @ q2 in one launch, at nq = 8 and 1, timed beside the two packed
    launches it replaced) against their plain versions at the checklist
-   path's shapes, on row slices that int64 can hold. K's tiled form (the hint
+   path's shapes, on row slices that int64 can hold (the answer's a_2 in
+   K's narrow form at nq = 8 and 1). K's tiled form (the hint
    setup's, one int8 tensor-core product a byte plane of the u32 operand)
    is checked on a launch whose last row band is ragged, as the whole
    DB's is, and timed on a 4,224-row sample of H1 beside its int8 and its
@@ -93,11 +94,17 @@ Phases (any failure exits non-zero, with no result line):
    with H1's first and last row bands held against the plain version and
    the same hint), 8-query membership batches through the
    port's client (2 K + 1 L launches an answer): members found, a
-   non-member's bits decode to 0, a tampered query does not decode.
+   non-member's bits decode to 0, a tampered query does not decode; K's
+   narrow form held against its plain version on the bucket's own a_2
+   operands (every hint row, nq = 8 and 1), timed beside its bound,
+   torch._int_mm over both planes stacked x 32 int8 columns, its blocks
+   an SM and ptxas report; the whole DB's level 1 beside torch._int_mm.
 11. device times: A, A' and F at the shapes of 3, E on every round of
    a dense expansion at NQ = 1 and 16, the regev_to_gsw kernel and the
    chain it replaced at NQ = 1 and 16, K's tiled form on the H1 sample
-   and L's answer form (and the two launches before it) of 8, and G in
+   and its narrow form at a_2 (nq = 8 and 1), L's answer form (and the two
+   launches before it) of 8, M at the sharded read's and 16-batch's
+   partials, and G in
    each mode at NQ = 1 and 16
    beside its latency bound (the dependent transforms of pack's dataflow
    times A's and A''s device time on one polynomial pair), from torch.profiler, last, because
@@ -1086,20 +1093,52 @@ def pack_device_times(params, dev, table: KernelTable,
 def k_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
     """Device time of kernel K's tiled form on the setup H1 sample (as
     phase_doublepir_kernels times it with CUDA events, which also carry the
-    wrapper's add row)."""
+    wrapper's add row), and of its narrow form on random digit planes of
+    the answer's a_2 shape at nq = 8 and 1 (phase_checklist_full's events
+    on the bucket's own planes)."""
     from sdk_tpu_torch.doublepir import server_torch as st
     from sdk_tpu_torch.doublepir.params import Params
 
     params = Params.from_string(config)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 10)
+    row = table.rows["dp_dot_i8"]
     a1 = dev_u32(gen, (params.m, params.n), dev)
     db_rows = dev_i8(gen, (33 * 128, params.m), dev)
-    table.rows["dp_dot_i8"]["tiled_device_ms"] = device_ms(
+    row["tiled_device_ms"] = device_ms(
         lambda: st.dot_i8_u32(db_rows, a1, c=128 - params.p // 2),
         "dot_i8_tiled", 5)
     del a1, db_rows
+    rows, l3 = params.n * params.delta(), -(-params.l // 3) * 3
+    lo = dev_i8(gen, (rows, l3), dev, 0, 128)
+    hi = dev_i8(gen, (rows, l3), dev, 0, 4)
+    for nq in (8, 1):
+        q2 = dev_u32(gen, (l3, nq), dev)
+        row[f"a2_device_ms_nq{nq}"] = device_ms(
+            lambda: st.dot_i8pair_u32(lo, hi, q2), "dot_i8_narrow", 10)
+    log(f"[device times] K narrow form a_2 nq=8 {row['a2_device_ms_nq8']} "
+        f"ms, nq=1 {row['a2_device_ms_nq1']} ms")
+    del lo, hi, q2
     torch.cuda.empty_cache()
+
+
+def m_device_times(params, dev, table: KernelTable) -> None:
+    """Device time of kernel M at the sharded read's D = 4 partials and at
+    R = 32 (check_psum_mod's events carry the wrapper's host time)."""
+    from sdk_tpu_torch.ops.shard import psum_mod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    row = table.rows["psum_mod"]
+    for key, R in (("device_ms", 2), ("R32_device_ms", 32)):
+        shape = (2, params.poly_len, params.instances, params.n * params.n // 2,
+                 1 << params.db_dim_2, R)
+        ps = [torch.randint(0, min(params.moduli), shape, generator=gen,
+                            dtype=torch.int32, device=dev) for _ in range(4)]
+        row[key] = device_ms(lambda: psum_mod(ps, params.moduli), "psum_mod",
+                             20)
+        del ps
+    log(f"[device times] M D=4 read {row['device_ms']} ms, R=32 "
+        f"{row['R32_device_ms']} ms")
 
 
 def l_device_times(dev, table: KernelTable, config: str = CHECKLIST) -> None:
@@ -1160,9 +1199,9 @@ def ingest_device_times(params, dev, table: KernelTable,
 
 
 def phase_device_times(params, dev, table: KernelTable) -> None:
-    """Device times of A, A', F, E, G, H and K from torch.profiler on fresh
-    inputs of the shapes the kernel phases timed with CUDA events (which
-    carry the wrapper's host time at small shapes). Run last: CUPTI's tracing stays
+    """Device times of A, A', F, E, G, H, K, L and M from torch.profiler on
+    fresh inputs of the shapes the kernel phases timed with CUDA events
+    (which carry the wrapper's host time at small shapes). Run last: CUPTI's tracing stays
     attached to the process and slows every launch that follows a profiler
     session (tools/read_stages_gpu.py), so no wall time is taken after it."""
     from sdk_tpu_torch.ops import ntt, spiral as sj
@@ -1207,6 +1246,7 @@ def phase_device_times(params, dev, table: KernelTable) -> None:
     ingest_device_times(params, dev, table, gen)
     k_device_times(dev, table)
     l_device_times(dev, table)
+    m_device_times(params, dev, table)
     row = table.rows["fold_round"]
     log("[device times] torch.profiler: A 8192 polys "
         f"{table.rows['ntt_forward']['device_ms']} ms, A' "
@@ -1454,6 +1494,7 @@ def check_dense_scan(params, db, gen, table: KernelTable, label: str) -> dict:
                        bnd=zb, library_ms=int_mm_ms(db_slice))
         del q_full, q_slice, got
     extra["library_ms_R32"] = int_mm_ms(db_slice, 32)
+    extra["full_index_library_ms_R2"] = int_mm_ms(db, 8)
     extra["full_index_library_ms_R32"] = int_mm_ms(db, 32)
     return {"row": row, "extra": extra}
 
@@ -1815,9 +1856,9 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
                 "sdk_tpu/ops/spiral_jax.py:430",
                 f"z-slice 64 of {params.poly_len} of the filled index, R=2 "
                 f"(ms, plain_ms, bound_ms, library_ms); R=32 and the whole "
-                f"index in *_R*; library_ms: torch._int_mm over the same int8 "
-                f"bytes x 8 int8 columns, *library_ms_R32 x 32 columns (no "
-                f"mod-q recombination)",
+                f"index in *_R*; library_ms and full_index_library_ms_R2: "
+                f"torch._int_mm over the same int8 bytes x 8 int8 columns, "
+                f"*library_ms_R32 x 32 columns (no mod-q recombination)",
                 c["row"]["ms"], c["row"]["plain_ms"], c["row"]["bnd"],
                 c["row"]["library_ms"], **c["extra"], tilings=tilings,
                 ptxas=ptxas_forms("scan", ("ntw",)))
@@ -2666,7 +2707,7 @@ def phase_doublepir_kernels(dev, table: KernelTable,
     # with its row-batch select, nq = 8 and 1
     q2 = dev_u32(gen, (l3, 8), dev)
     lo, hi = dev_i8(gen, (512, l3), dev, 0, 128), dev_i8(gen, (512, l3), dev, 0, 4)
-    table.check(name, "answer a_2 pair, 512 hint rows x 8", max_abs_err(
+    table.check(name, "answer a_2 (narrow form), 512 hint rows x 8", max_abs_err(
         st.dot_i8pair_u32(lo, hi, q2), st._dot_plain(lo, hi, q2, 0, False)))
     del lo, hi
     rows = 2048
@@ -2899,6 +2940,7 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
                          log2m: int = 36, config: str = CHECKLIST,
                          n_keys: int = 300) -> dict:
     """The production checklist bucket, end to end on the card."""
+    from sdk_tpu_torch import _build
     from sdk_tpu_torch.clients.bloom import bloom_hash
     from sdk_tpu_torch.doublepir import kernels as dk, server_torch as st
     from sdk_tpu_torch.doublepir.serializer import serialize_states
@@ -3041,17 +3083,55 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
                       f"level1_full_bound_ms_nq{nq}": b["bound_ms"],
                       f"level1_full_bound_by_nq{nq}": b["bound_by"],
                       f"level1_full_share_of_bound_nq{nq}": b["bound_ms"] / ms})
-    a2_ms = cuda_ms(lambda: st.dot_i8pair_u32(eng.h1_lo, eng.h1_hi, q2), 10)
-    a2_b = bound(nbytes(eng.h1_lo, eng.h1_hi, q2) + 4 * eng.h1_lo.shape[0] * 8,
-                 2 * eng.h1_lo.numel() * 8, INT32_OPS_PER_S)
-    k_row.update(a2_full_ms=a2_ms, a2_full_bound_ms=a2_b["bound_ms"],
-                 a2_full_bound_by=a2_b["bound_by"])
+    # the whole DB's level 1 against torch._int_mm over the same int8 rows
+    # (with their padding) x 8 int8 columns
+    rows, stride = eng.db.shape[0], eng.db.stride(0)
+    db_whole = torch.as_strided(eng.db, (rows, stride), (stride, 1))
+    k_row["level1_full_library_ms"] = cuda_ms(lambda: torch._int_mm(
+        db_whole, torch.ones((stride, 8), dtype=torch.int8, device=dev)), 5)
+    del db_whole
+    # a_2, the narrow form, on the bucket's own operands: every row held
+    # against the plain version (512-row bands), nq = 8 and 1
+    h_rows = eng.h1_lo.shape[0]
+    for nq in (8, 1):
+        q = q2[:, :nq].contiguous()
+        got = st.dot_i8pair_u32(eng.h1_lo, eng.h1_hi, q)
+        for r0 in range(0, h_rows, 512):
+            sl = slice(r0, r0 + 512)
+            table.check("dp_dot_i8", f"answer a_2 (narrow form), the "
+                        f"bucket's hint rows {r0}.., nq={nq}", max_abs_err(
+                            got[sl], st._dot_plain(eng.h1_lo[sl],
+                                                   eng.h1_hi[sl], q, 0,
+                                                   False)))
+        b = bound(nbytes(eng.h1_lo, eng.h1_hi, q) + 4 * h_rows * nq,
+                  7 * 2 * eng.h1_lo.numel() * 8, INT8_OPS_PER_S)
+        k_row.update({f"a2_full_ms_nq{nq}": cuda_ms(
+            lambda: st.dot_i8pair_u32(eng.h1_lo, eng.h1_hi, q), 10),
+            f"a2_full_bound_ms_nq{nq}": b["bound_ms"],
+            f"a2_full_bound_by_nq{nq}": b["bound_by"]})
+        del got
+    # the library yardstick: torch._int_mm over both planes stacked, (2 x
+    # 4,096 rows with their padding) @ (K padded, 32) int8: the four byte
+    # planes of 8 columns; the port never calls it
+    pstride = eng.h1_lo.stride(0)
+    stacked = torch.cat([torch.as_strided(p, (h_rows, pstride), (pstride, 1))
+                         for p in (eng.h1_lo, eng.h1_hi)])
+    ones = torch.ones((pstride, 32), dtype=torch.int8, device=dev)
+    k_row["a2_library_ms"] = cuda_ms(lambda: torch._int_mm(stacked, ones), 10)
+    del stacked, ones
+    k_row.update(
+        a2_blocks_per_sm=_build.lib()["sdk_dp_dot_i8_narrow_occupancy"](1),
+        a2_ptxas={k: v for k, v in _build.ptxas_usage("dp_dot_i8").items()
+                  if "narrow" in k})
+    a2_ms = k_row["a2_full_ms_nq8"]
     out["level1_ms_nq8"] = k_row["level1_full_ms_nq8"]
     out["level1_GBps_nq8"] = k_row["level1_full_GBps_nq8"]
     log(f"[checklist] answer wall median {out['answer_wall_ms_nq8_median']:.2f}"
         f" ms (nq=8), {out['answer_wall_ms_nq1_median']:.2f} ms (nq=1); K "
         f"level 1 over {db_bytes} bytes {out['level1_ms_nq8']:.3f} ms = "
-        f"{out['level1_GBps_nq8']:.0f} GB/s; a_2 {a2_ms:.3f} ms; "
+        f"{out['level1_GBps_nq8']:.0f} GB/s; a_2 {a2_ms:.3f} ms (narrow "
+        f"form, nq=1 {k_row['a2_full_ms_nq1']:.3f}; torch._int_mm "
+        f"{k_row['a2_library_ms']:.3f}); "
         f"{counts['dp_dot_i8']} K + {counts['dp_matmul_u32']} L launches per "
         f"answer")
     del srv, eng, q1, q2

@@ -61,10 +61,13 @@ _SIGNATURES = {
                               _U, _ULL, _U, _P)),
     "sdk_expand_round": ("expand_round", (_P, _P, _P, _P, _LL, _I, _I, _I,
                                           _ULL, _U, _U, _ULL, _P)),
-    "sdk_dp_dot_i8": ("dp_dot_i8", (_P, _P, _LL, _P, _I, _LL, _P, _P, _LL, _I,
-                                    _LL, _I, _P)),
+    "sdk_dp_dot_i8_select": ("dp_dot_i8", (_P, _LL, _P, _P, _P, _LL, _I, _LL,
+                                           _I, _P)),
     "sdk_dp_dot_i8_tiled": ("dp_dot_i8", (_P, _P, _LL, _P, _LL, _I, _P, _P,
                                           _LL, _I, _P)),
+    "sdk_dp_dot_i8_narrow": ("dp_dot_i8", (_P, _P, _LL, _P, _I, _P, _P, _LL,
+                                           _I, _P)),
+    "sdk_dp_dot_i8_narrow_occupancy": ("dp_dot_i8", (_I,)),
     "sdk_dp_mma_wrap_probe": ("dp_dot_i8", (_P, _I, _P)),
     "sdk_dp_matmul_u32": ("dp_matmul_u32", (_P, _LL, _P, _P, _LL, _I, _I, _I,
                                             _P)),
@@ -81,7 +84,8 @@ _SIGNATURES = {
                               _I, _I, _I, _LL, _LL, _I, _U, _U, _P)),
     "sdk_compact_to_dense": ("compact_to_dense", (_P, _P, _P, _P, _LL, _I, _I,
                                                   _I, _I, _I, _I, _I, _I, _P)),
-    "sdk_psum_mod": ("psum_mod", (_P, _I, _LL, _LL, _U, _U, _I, _P, _P)),
+    "sdk_psum_mod": ("psum_mod", (_P, _I, _LL, _LL, _U, _U, _ULL, _U, _U, _ULL,
+                                  _I, _P, _P)),
     "sdk_expansion": ("expansion", (_P, _P, _P, _LL, _LL, _I, _P, _P, _P, _P,
                                     _P, _P, _P, _I, _I, _I, _I, _ULL, _U, _U,
                                     _ULL, _I, _P)),
@@ -181,6 +185,8 @@ def ptxas_usage(stem: str) -> dict[str, dict]:
 def lib() -> dict:
     """The C entry points by name, built and loaded on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             sos = {stem: ctypes.CDLL(str(path))
@@ -202,15 +208,19 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
-    """Call C entry point ``entry`` with ``device`` current, raise on a
-    launch error, count the launch."""
+    """Call C entry point ``entry`` with ``device`` current (made current
+    only if it is not), raise on a launch error, count the launch."""
     fns = lib()
+    fn = fns[entry]
     # ctypes passes surplus arguments unconverted, shifting the rest
-    if len(args) != len(fns[entry].argtypes):
+    if len(args) != len(fn.argtypes):
         raise TypeError(f"{entry}: {len(args)} arguments, "
-                        f"{len(fns[entry].argtypes)} declared")
-    with torch.cuda.device(device):
-        rc = fns[entry](*args)
+                        f"{len(fn.argtypes)} declared")
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args)
     if rc != 0:
         msg = fns["sdk_error_string"](rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

@@ -11,11 +11,12 @@ exactly one byte of the packed bloom bitfield, stored as
 - 1 B/element: the production DB is 8.6 GB on the device; no unsquished or
   32-bit copy ever exists.
 - The stored tensor IS the left operand of kernel K (csrc/dp_dot_i8.cu),
-  exact mod 2^32 for any K in both its forms: the answer's rows form
-  multiplies 32 bits on the CUDA cores; the setup's tiled form runs one
-  int8 tensor-core product a byte plane of the u32 operand and restarts
-  its s32 accumulators every 65,536 k, so the JAX program's limb planes
-  and its int32 accumulation bound are gone.
+  exact mod 2^32 for any K in its three forms: the answer's level-1 select
+  multiplies 32 bits on the CUDA cores; the setup's tiled form (N > 8) and
+  the answer's narrow form (the hint product a_2, N <= 8) run one int8
+  tensor-core product a byte plane of the u32 operand in s32 runs of at
+  most 65,536 k, so the JAX program's limb planes and its int32
+  accumulation bound are gone.
 - The batched answer makes ONE pass over the DB: each row multiplies only
   the query column its row batch selects (reference answer loops batches
   serially, doublepir.rs:261-316).
@@ -53,7 +54,7 @@ from .matrix import (SEEDS_SHORT, SQUISH_BASIS, SQUISH_DELTA,
                      derive_from_seed_rows)
 from .params import Params
 
-ROW_ALIGN = 16            # bytes; K's tiled form copies rows in 16-byte chunks
+ROW_ALIGN = 16            # bytes; K's tensor-core forms read rows in 16-byte chunks
 UPLOAD_CHUNK_BYTES = 1 << 28
 GLUE_ROWS = 512           # rows of H1 planes per elementwise glue step
 
@@ -68,9 +69,9 @@ def aligned_rows(rows: int, cols: int, device, fill: int = 0) -> torch.Tensor:
 
 def _kernel_rows(a: torch.Tensor, align: int = 4) -> torch.Tensor:
     """``a`` itself if kernel K can read it in place (rows on ``align``-byte
-    boundaries: 4 for the rows form's words, 16 for the tiled form's chunks;
-    every row's last word or chunk inside the storage), else a copy in
-    aligned rows."""
+    boundaries: 4 for the select form's words, 16 for the tensor-core
+    forms' chunks; every row's last word or chunk inside the storage), else
+    a copy in aligned rows."""
     rows, cols = a.shape
     end = a.storage_offset() + (rows - 1) * a.stride(0) + \
         -(-cols // align) * align
@@ -116,16 +117,27 @@ def _dot_plain(a_lo, a_hi, b, c: int, select: bool) -> torch.Tensor:
     return u32_wrap(z)
 
 
-def _dot_tiled_launch(a_lo, a_hi, b, c: int):
-    """The tiled form (N > 8): rows aligned to 16 bytes, b's columns padded
-    with zeros to a multiple of 4 where they are not (16-byte copies)."""
-    M, K = a_lo.shape
-    N = b.shape[1]
+def _plane_rows(a_lo, a_hi):
+    """Both planes in the tensor-core forms' 16-byte rows (``_kernel_rows``)
+    sharing one stride."""
     a_lo = _kernel_rows(a_lo, ROW_ALIGN)
     if a_hi is not None:
         a_hi = _kernel_rows(a_hi, ROW_ALIGN)
         if a_hi.stride(0) != a_lo.stride(0):
             raise ValueError("the two planes must share their row stride")
+    return a_lo, a_hi
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _dot_tiled_launch(a_lo, a_hi, b, c: int):
+    """The tiled form (N > 8): rows aligned to 16 bytes, b's columns padded
+    with zeros to a multiple of 4 where they are not (16-byte copies)."""
+    M, K = a_lo.shape
+    N = b.shape[1]
+    a_lo, a_hi = _plane_rows(a_lo, a_hi)
     add = _add_row(b, c)
     ldb = -(-N // 4) * 4
     if ldb != N or not b.is_contiguous() or b.data_ptr() % 16:
@@ -135,45 +147,56 @@ def _dot_tiled_launch(a_lo, a_hi, b, c: int):
     out = torch.empty((M, N), dtype=torch.int32, device=b.device)
     _build.require_cuda(b, out, *([add] if add is not None else []))
     _build.launch("dp_dot_i8", "sdk_dp_dot_i8_tiled", b.device,
-                  a_lo.data_ptr(),
-                  a_hi.data_ptr() if a_hi is not None else None,
-                  a_lo.stride(0), b.data_ptr(), ldb, N,
-                  add.data_ptr() if add is not None else None,
-                  out.data_ptr(), M, K, _build.stream_of(b))
+                  a_lo.data_ptr(), _ptr(a_hi), a_lo.stride(0), b.data_ptr(),
+                  ldb, N, _ptr(add), out.data_ptr(), M, K,
+                  _build.stream_of(b))
+    return out
+
+
+def _dot_narrow_launch(a_lo, a_hi, b, c: int):
+    """The narrow form (N <= 8, the answer's a_2): rows aligned to 16
+    bytes, b as it is; the entry zeroes the output before the launch."""
+    M, K = a_lo.shape
+    N = b.shape[1]
+    if not 1 <= N <= 8:
+        raise ValueError(f"the narrow form takes 1..8 columns, got {N}")
+    a_lo, a_hi = _plane_rows(a_lo, a_hi)
+    add = _add_row(b, c)
+    b = b.contiguous()
+    out = torch.empty((M, N), dtype=torch.int32, device=b.device)
+    _build.require_cuda(b, out, *([add] if add is not None else []))
+    _build.launch("dp_dot_i8", "sdk_dp_dot_i8_narrow", b.device,
+                  a_lo.data_ptr(), _ptr(a_hi), a_lo.stride(0), b.data_ptr(),
+                  N, _ptr(add), out.data_ptr(), M, K, _build.stream_of(b))
+    return out
+
+
+def _dot_select_launch(a, b, c: int):
+    """The select form (the level-1 pass): operand q is column q of b,
+    contiguous, so a block of batch q reads only that column."""
+    M, K = a.shape
+    nq = b.shape[1]
+    a = _kernel_rows(a)
+    add = _add_row(b, c)
+    bt = b.t().contiguous()
+    out = torch.empty((M,), dtype=torch.int32, device=b.device)
+    _build.require_cuda(bt, out, *([add] if add is not None else []))
+    _build.launch("dp_dot_i8", "sdk_dp_dot_i8_select", b.device,
+                  a.data_ptr(), a.stride(0), bt.data_ptr(), _ptr(add),
+                  out.data_ptr(), M, K, M // nq, nq, _build.stream_of(bt))
     return out
 
 
 def _dot_launch(a_lo, a_hi, b, c: int, select: bool) -> torch.Tensor:
-    """Kernel K: the tiled form for N > 8, else the rows form (with the
-    row-batch select when ``select``)."""
-    M, K = a_lo.shape
-    nq = b.shape[1]
-    if not select and nq > 8:
-        return _dot_tiled_launch(a_lo, a_hi, b, c)
-    a_lo = _kernel_rows(a_lo)
-    if a_hi is not None:
-        a_hi = _kernel_rows(a_hi)
-        if a_hi.stride(0) != a_lo.stride(0):
-            raise ValueError("the two planes must share their row stride")
-    add = _add_row(b, c)
+    """Kernel K: the select form for the level-1 row-batch select (one
+    plane), the narrow form for N <= 8, the tiled form for N > 8."""
     if select:
-        # operand q is column q of b, contiguous: a block of batch q reads
-        # only that column
-        b = b.t().contiguous()
-        n, stride, nbatch, per_batch = 1, K, nq, M // nq
-        out = torch.empty((M,), dtype=torch.int32, device=b.device)
-    else:
-        b = b.contiguous()
-        n, stride, nbatch, per_batch = nq, 0, 1, M
-        out = torch.empty((M, nq), dtype=torch.int32, device=b.device)
-    _build.require_cuda(b, out, *([add] if add is not None else []))
-    _build.launch("dp_dot_i8", "sdk_dp_dot_i8", b.device, a_lo.data_ptr(),
-                  a_hi.data_ptr() if a_hi is not None else None,
-                  a_lo.stride(0), b.data_ptr(), n, stride,
-                  add.data_ptr() if add is not None else None,
-                  out.data_ptr(), M, K, per_batch, nbatch,
-                  _build.stream_of(b))
-    return out
+        if a_hi is not None:
+            raise ValueError("the select form takes one plane")
+        return _dot_select_launch(a_lo, b, c)
+    if b.shape[1] <= 8:
+        return _dot_narrow_launch(a_lo, a_hi, b, c)
+    return _dot_tiled_launch(a_lo, a_hi, b, c)
 
 
 def _dot(a_lo, a_hi, b, c: int, select: bool) -> torch.Tensor:
@@ -545,7 +568,7 @@ class ChecklistServerTorch:
         the row-batch select (K), the a_1 -> squished-a_1^T glue transform
         (transpose_expand_concat_cols_squish for cols=concat=1: exact digit
         arithmetic, identical to the host), msg[0] and h_2 (one launch of
-        L's answer form), and the hint matvec a_2 (K, pair form)."""
+        L's answer form), and the hint matvec a_2 (K's narrow form, pair)."""
         a_1 = dot_i8_select(self.db, q1, c=128)                 # (l,)
         return self._answer_rest(a_1, self._a2_pad_dev, self.h1_lo,
                                  self.h1_hi, q2)

@@ -22,6 +22,9 @@ logical shards) before kernel M sums them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -30,7 +33,7 @@ from ..params import Params
 from . import spiral as sj
 
 MASK32 = 0xFFFFFFFF
-MAX_PARTS = 64          # kernel M's pointer table
+MAX_PARTS = 64          # kernel M's part pointers (a kernel parameter)
 
 
 class Mesh:
@@ -164,23 +167,47 @@ def psum_mod_plain(parts: list, q) -> torch.Tensor:
         .reshape(parts[0].shape)
 
 
+@functools.lru_cache(maxsize=None)
+def reduction_constants(q: int) -> tuple[int, int, int]:
+    """Kernel M's constants of one channel: (q, r, m) with r = 2^32 mod q
+    and m = floor((2^64 - 1) / q), the Barrett multiplier of the kernel's
+    __umul64hi; (0, 0, 0) for q = 0, the sum mod 2^32."""
+    if q == 0:
+        return 0, 0, 0
+    if not 1 <= q < 1 << 32:
+        raise ValueError(f"psum_mod: modulus {q} is not below 2^32")
+    return q, (1 << 32) % q, ((1 << 64) - 1) // q
+
+
 def _psum_mod_launch(parts: list, q) -> torch.Tensor:
-    _check_parts(parts)
-    parts = [p.contiguous() for p in parts]
-    moduli = _moduli(q, parts[0].shape[0] if parts[0].ndim else 1)
-    n = parts[0].numel()
+    """Kernel M on the first part's CUDA device: one pass over the parts
+    checks them (int32, one shape), moves any on another device there and
+    takes their pointers; the output is the only allocation, and nothing is
+    copied to the device (the pointers go by value in the kernel's
+    parameters)."""
+    if not 1 <= len(parts) <= MAX_PARTS:
+        raise ValueError(f"psum_mod: 1..{MAX_PARTS} parts, got {len(parts)}")
+    dev, shape = parts[0].device, parts[0].shape
+    held, ptrs, vec4 = [], [], True
+    for p in parts:
+        if p.dtype != torch.int32 or p.shape != shape:
+            _check_parts(parts)
+        if p.device != dev:
+            p = p.to(dev, non_blocking=True)
+        if not p.is_contiguous():
+            p = p.contiguous()
+        held.append(p)
+        ptrs.append(p.data_ptr())
+        vec4 = vec4 and ptrs[-1] % 16 == 0
+    moduli = _moduli(q, shape[0] if len(shape) else 1)
+    out = torch.empty_like(held[0])
+    n = out.numel()
     chan = n // len(moduli) if len(moduli) == 2 else n
-    q0, q1 = (moduli + moduli)[:2]
-    dev = parts[0].device
-    out = torch.empty_like(parts[0])
-    table = torch.tensor([p.data_ptr() for p in parts], dtype=torch.int64,
-                         device=dev)
-    vec4 = (n % 4 == 0 and chan % 4 == 0
-            and all(p.data_ptr() % 16 == 0 for p in parts + [out]))
-    _build.require_cuda(table, out, *parts)
-    _build.launch("psum_mod", "sdk_psum_mod", dev, table.data_ptr(),
-                  len(parts), n, chan, q0, q1, int(vec4), out.data_ptr(),
-                  _build.stream_of(out))
+    c0, c1 = (reduction_constants(m) for m in (moduli + moduli)[:2])
+    vec4 = vec4 and n % 4 == 0 and chan % 4 == 0 and out.data_ptr() % 16 == 0
+    _build.launch("psum_mod", "sdk_psum_mod", dev,
+                  (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), n, chan,
+                  *c0, *c1, int(vec4), out.data_ptr(), _build.stream_of(out))
     return out
 
 
@@ -191,11 +218,10 @@ def psum_mod(parts: list, q) -> torch.Tensor:
     Runs on the first part's device (the others are moved there): kernel M
     on a CUDA tensor, psum_mod_plain on a CPU tensor."""
     dev = parts[0].device
-    parts = [p.to(dev, non_blocking=True) for p in parts]
     if dev.type == "cuda":
         return _psum_mod_launch(parts, q)
     if dev.type == "cpu":
-        return psum_mod_plain(parts, q)
+        return psum_mod_plain([p.to(dev) for p in parts], q)
     raise ValueError(f"unsupported device {dev}")
 
 

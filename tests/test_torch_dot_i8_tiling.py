@@ -504,7 +504,7 @@ def test_tiled_rows_are_16_byte_aligned():
     a = st.aligned_rows(5, 1003, "cpu")
     assert st._kernel_rows(a, st.ROW_ALIGN) is a
     b = torch.zeros((5, 1004), dtype=torch.int8)
-    assert st._kernel_rows(b) is b                  # the rows form's words
+    assert st._kernel_rows(b) is b                  # the select form's words
     c = st._kernel_rows(b, st.ROW_ALIGN)
     assert c is not b and c.stride(0) % 16 == 0 and torch.equal(c, b)
     d = st._kernel_rows(a[1:], st.ROW_ALIGN)

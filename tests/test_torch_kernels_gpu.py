@@ -946,6 +946,115 @@ def test_dp_dot_i8_tiled_production_rows(cuda, pair):
     assert torch.equal(got, want)
 
 
+def _card_rows(planes, cuda):
+    """CPU int8 planes copied into kernel K's aligned rows on the card."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    out = []
+    for pl in planes:
+        rows = st.aligned_rows(pl.shape[0], pl.shape[1], cuda)
+        rows.copy_(pl.to(cuda))
+        out.append(rows)
+    return out
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("N", range(1, 9))
+def test_dp_dot_i8_narrow_ragged(cuda, N, pair):
+    """The narrow form (N <= 8) in one launch against its plain version:
+    300 rows (two row groups, not a multiple of 16), K = 4,099 (not a
+    multiple of 32), every N, with the setup's add rows; and a b off a
+    16-byte boundary (word copies of its slices)."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    M, K = 300, 4099
+    planes, b = _dot_operands(np.random.default_rng(20 + N), M, K, N, pair,
+                              "random")
+    dev = _card_rows(planes, cuda)
+    c = -232 if pair else 128 - 232
+    b_dev = b.to(cuda)
+    if N % 4 == 0:
+        flat = torch.empty(K * N + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = b_dev.flatten()
+        b_dev = flat[1:].view(K, N)
+    _build.reset_launches()
+    got = st._dot(dev[0], dev[1] if pair else None, b_dev, c, False)
+    assert _build.LAUNCHES["dp_dot_i8"] == 1
+    want = st._dot_plain(dev[0], dev[1] if pair else None, b_dev, c, False)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nq", [8, 1])
+def test_dp_dot_i8_narrow_production_a2(cuda, nq):
+    """The answer's a_2 at the production shape, (4,096 x 92,682) digit
+    planes @ q2 (92,682 x nq), held against the plain version on its first,
+    middle and last 256 rows."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    rows, l3 = 4096, 92682
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    lo, hi = st.aligned_rows(rows, l3, cuda), st.aligned_rows(rows, l3, cuda)
+    lo.copy_(torch.randint(0, 128, (rows, l3), dtype=torch.int8, device=cuda,
+                           generator=gen))
+    hi.copy_(torch.randint(0, 4, (rows, l3), dtype=torch.int8, device=cuda,
+                           generator=gen))
+    q2 = torch.randint(-(1 << 31), 1 << 31, (l3, nq), dtype=torch.int64,
+                       device=cuda, generator=gen).to(torch.int32)
+    _build.reset_launches()
+    got = st.dot_i8pair_u32(lo, hi, q2)
+    assert _build.LAUNCHES["dp_dot_i8"] == 1
+    for sl in (slice(0, 256), slice(1920, 2176), slice(rows - 256, rows)):
+        assert torch.equal(got[sl], st._dot_plain(lo[sl], hi[sl], q2, 0,
+                                                  False))
+
+
+@pytest.mark.parametrize("form", ["worst", "random"])
+@pytest.mark.parametrize("pair", [False, True])
+def test_dp_dot_i8_narrow_past_one_run(cuda, pair, form):
+    """K = 131,000 over 133 row groups: the grid takes two splits, the first
+    a whole run of 65,536 k, past the JAX program's bound; at the worst
+    values (b = 0xFFFFFFFF; a = -128, or the pair's (a_lo, a_hi) = (127,
+    2), (127, 3), (0, 1), (127, 0) by row) each run stays inside int32
+    only because no split is longer. Checked on the first and last rows."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    M, K, N = 133 * 256, 131000, 8
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    if form == "worst":
+        b = torch.full((K, N), -1, dtype=torch.int32, device=cuda)
+        if pair:
+            lo_hi = torch.tensor([[127, 2], [127, 3], [0, 1], [127, 0]],
+                                 dtype=torch.int8, device=cuda)
+            by_row = lo_hi[torch.arange(M, device=cuda) % 4]
+            fills = [by_row[:, :1], by_row[:, 1:]]
+        else:
+            fills = [torch.full((M, 1), -128, dtype=torch.int8, device=cuda)]
+        planes = []
+        for f in fills:
+            rows = st.aligned_rows(M, K, cuda)
+            rows.copy_(f.expand(M, K))
+            planes.append(rows)
+    else:
+        b = torch.randint(-(1 << 31), 1 << 31, (K, N), dtype=torch.int64,
+                          device=cuda, generator=gen).to(torch.int32)
+        bounds = [(0, 128), (0, 4)] if pair else [(-128, 128)]
+        planes = []
+        for low, high in bounds:
+            rows = st.aligned_rows(M, K, cuda)
+            rows.copy_(torch.randint(low, high, (M, K), dtype=torch.int8,
+                                     device=cuda, generator=gen))
+            planes.append(rows)
+    hi = planes[1] if pair else None
+    c = -232 if pair else 128 - 232
+    got = st._dot(planes[0], hi, b, c, False)
+    for sl in (slice(0, 64), slice(M - 64, M)):
+        want = st._dot_plain(planes[0][sl], None if hi is None else hi[sl],
+                             b, c, False)
+        assert torch.equal(got[sl], want)
+    del planes, hi
+    torch.cuda.empty_cache()
+
+
 def test_mma_s32_accumulation_wraps(cuda):
     """mma.sync's s32 accumulation past 2^31 (the probe in dp_dot_i8.cu:
     3,000 products of 1,036,320 into accumulators that never restart)
@@ -1021,11 +1130,12 @@ def test_checklist_on_card_equals_cpu(cuda, config):
 
 
 @pytest.mark.parametrize("form", ["spiral", "wrapping", "unaligned"])
-@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("D", [1, 2, 4, 8, 64])
 def test_psum_mod_matches_plain(cuda, D, form):
-    """Kernel M against its plain version: the Spiral form (two channels,
-    each mod its own q), the wrapping form (q = 0) at an odd size, and parts
-    off 16-byte boundaries (the one-element path)."""
+    """Kernel M against its plain version in one launch: the Spiral form
+    (two channels, each mod its own q), the wrapping form (q = 0) at an odd
+    size, and parts off 16-byte boundaries (the one-element path); one part
+    and the 64 the kernel's parameters hold."""
     from sdk_tpu_torch.ops import shard
 
     rng = np.random.default_rng(30 + D)

@@ -3,10 +3,10 @@
 scan) of sdk_tpu_torch on one CUDA card, on a random index of the 1 GiB
 bucket's full size; or kernels A / A' (the NTT), F (the fold round) or G
 (pack + encode) at the 1 GiB bucket's read-path shapes; or K's tiled form,
-or the write path's H and H'.
+the checklist answer's L and K products, M, or the write path's H and H'.
 
     python3 tools/scan_bench_gpu.py [--kernel dense|compact|ntt|fold|pack|dot
-                                              |ingest|migrate|r2g|answer]
+                                              |ingest|migrate|r2g|answer|psum]
                                     [--root DIR] [--sweep] [--iters N]
                                     [--columns 2,32] [--config CHECKLIST]
 
@@ -51,10 +51,9 @@ tiling that ``fold_tiling`` offers.
 config (``--config``): the hint setup's H1 on a 4,224-row sample and on
 the whole 8.59 GB DB of random rows from a seed (one launch), one H2
 digit-plane pair launch, the schedule's HBM bytes by an analytic model,
-and the production setup's wall split and peak memory on the same DB; in
-a checkout with the tensor-core form also the answer's a_2 shape in the
-tiled form beside the rows form (``bench_dot``). Its tiling is fixed, so
-``--sweep`` adds nothing there.
+and the production setup's wall split and peak memory on the same DB, and
+the answer's a_2 shape in the form the answer runs (``bench_dot``). Its
+tiling is fixed, so ``--sweep`` adds nothing there.
 
 ``--kernel r2g`` times the read path's Regev -> GSW conversion with the
 negated folding keys at NQ = 1 and 16 on random canonical leaves of a
@@ -71,7 +70,14 @@ times the checklist answer's msg0 = a_1t @ A2 and h_2 = a_1t @ q2 at the
 production config (``--config``), nq = 8 and 1: L's fused answer launch
 (``answer_products``) or, before it, two ``mat_mul_vec_packed`` launches,
 checked against the plain products, events and device times beside the
-bound (A2 + q2 + a_1t read once).
+bound (A2 + q2 + a_1t read once); then the answer's hint product a_2 at nq
+= 8 and 1 on random digit planes of the production shape: K's narrow form,
+or in a parent the rows form (``bench_a2``); and the level-1 pass (K's
+select form) over a whole random DB of the production shape
+(``bench_level1``). ``--kernel psum`` times
+kernel M at the sharded read's D = 4 partials (R = 2) and the 16-batch's
+(R = 32), and in the wrapping form: events, the kernel's device time and
+any copy a call makes, the host time of a call (``bench_psum``).
 
 ``--kernel ingest`` times kernel H (the write path's ingest) on a
 full-size 8.59 GB dense index: 256 and 1,024 neighbouring items and 256
@@ -298,9 +304,8 @@ def bench_dot(torch, dev, gen, args) -> dict:
     first and last rows) and timed with CUDA events with the setup's add
     row and without it (c = 0); the analytic HBM bytes of the schedule;
     the production setup's wall and peak memory on the same DB, then the
-    same setup again split (chip_smoke.setup_split); and, in a checkout
-    with the tensor-core form, the answer's a_2 shape (4,096 digit rows @
-    8 columns) in the tiled form beside the rows form the answer runs."""
+    same setup again split (chip_smoke.setup_split); and the answer's a_2
+    shape (4,096 digit rows @ 8 columns) in the form the answer runs."""
     import numpy as np
     from chip_smoke import dev_i8, dev_u32, setup_split, tiled_hbm_bytes
     from sdk_tpu_torch.doublepir import server_torch as st
@@ -365,22 +370,19 @@ def bench_dot(torch, dev, gen, args) -> dict:
     check("h2 pair", st.dot_i8pair_u32(lo[:128], hi[:128], a2, c=-(p // 2)),
           lo[:128], hi[:128], a2, -(p // 2))
     case("h2_pair", lo, hi, a2, -(p // 2), 7)
-    if cores:
-        # the answer's a_2: (n delta, l rounded up to 3) digit planes @ 8
-        l3 = -(-l // 3) * 3
-        d_lo = dev_i8(gen, (n * params.delta(), l3), dev, 0, 128)
-        d_hi = dev_i8(gen, (n * params.delta(), l3), dev, 0, 4)
-        q2 = dev_u32(gen, (l3, 8), dev)
-        want = st.dot_i8pair_u32(d_lo, d_hi, q2)
-        if not torch.equal(st._dot_tiled_launch(d_lo, d_hi, q2, 0), want):
-            raise AssertionError("dot a_2: tiled form != rows form")
-        out["answer_a2"] = {
-            "shape": [n * params.delta(), l3, 8],
-            "rows_ms": cuda_ms(lambda: st.dot_i8pair_u32(d_lo, d_hi, q2),
-                               args.iters),
-            "tiled_ms": cuda_ms(lambda: st._dot_tiled_launch(
-                d_lo, d_hi, q2, 0), args.iters)}
-        del d_lo, d_hi, q2, want
+    # the answer's a_2: (n delta, l rounded up to 3) digit planes @ 8, in
+    # the form the answer runs (the narrow form; the rows form before it)
+    l3 = -(-l // 3) * 3
+    d_lo = dev_i8(gen, (n * params.delta(), l3), dev, 0, 128)
+    d_hi = dev_i8(gen, (n * params.delta(), l3), dev, 0, 4)
+    q2 = dev_u32(gen, (l3, 8), dev)
+    check("a_2", st.dot_i8pair_u32(d_lo[:256], d_hi[:256], q2), d_lo[:256],
+          d_hi[:256], q2, 0)
+    out["answer_a2"] = {
+        "shape": [n * params.delta(), l3, 8],
+        "form": "narrow" if hasattr(st, "_dot_narrow_launch") else "rows",
+        "ms": cuda_ms(lambda: st.dot_i8pair_u32(d_lo, d_hi, q2), args.iters)}
+    del d_lo, d_hi, q2
     del a1, a2, lo, hi, rows
     torch.cuda.empty_cache()
 
@@ -615,12 +617,171 @@ def bench_answer(torch, dev, gen, args) -> dict:
 
     fn = _build.lib().get("sdk_dp_answer_blocks")
     out["answer_blocks"] = fn() if fn is not None else None
+    out["a_2"] = bench_a2(torch, dp, dev, gen, args)
+    out["level1"] = bench_level1(torch, dp, dev, gen, args)
     return out
 
 
-def device_split(torch, fn, iters: int) -> dict:
+def bench_level1(torch, dp, dev, gen, args) -> dict:
+    """The answer's level-1 pass, K's select form, over a whole random DB of
+    the production shape (l x m int8 in aligned rows) at nq = 8 and 1,
+    checked against the plain version on the first and last 64 rows:
+    events and profiler device time beside the byte bound."""
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    db = st.aligned_rows(dp.l, dp.m, dev)
+    for r0 in range(0, dp.l, 4096):
+        r1 = min(dp.l, r0 + 4096)
+        db[r0:r1].copy_(torch.randint(-128, 128, (r1 - r0, dp.m),
+                                      dtype=torch.int8, device=dev,
+                                      generator=gen))
+    out = {"shape": [dp.l, dp.m]}
+    for nq in (8, 1):
+        q1 = torch.randint(-(1 << 31), 1 << 31, (dp.m, nq), dtype=torch.int64,
+                           device=dev, generator=gen).to(torch.int32)
+        got = st.dot_i8_select(db, q1, c=128)
+        idx = st.batch_index(dp.l, nq, dev)
+        for sl in (slice(0, 64), slice(max(0, dp.l - 64), dp.l)):
+            want = st._dot_plain(db[sl], None, q1, 128, False)
+            rows = torch.arange(want.shape[0], device=dev)
+            if not torch.equal(got[sl], want[rows, idx[sl]]):
+                raise AssertionError(f"level 1 nq={nq}: kernel != plain")
+
+        def stage():
+            return st.dot_i8_select(db, q1, c=128)
+        ms = cuda_ms(stage, 5)
+        split = device_split(torch, stage, 5)
+        dev_ms = sum(v for k, v in split.items() if "dot_i8" in k)
+        bnd = (dp.l * dp.m + 4 * dp.m * nq + 4 * dp.l) / HBM_BYTES_PER_S * 1e3
+        out[f"nq{nq}"] = {"ms": ms, "device_ms": dev_ms, "bound_ms": bnd,
+                          "GBps": dp.l * dp.m / dev_ms / 1e6 if dev_ms
+                          else None}
+        del q1, got
+    del db
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_a2(torch, dp, dev, gen, args) -> dict:
+    """The answer's hint product a_2 = (h1_lo + h1_hi 2^7) @ q2 at nq = 8
+    and 1 (kernel K: the narrow form, or the rows form before it) on random
+    digit planes of the production shape, (n delta, l rounded up to 3) in
+    aligned rows, checked against the plain version on the first and last
+    256 rows; events over back-to-back calls and the kernel's profiler
+    device time, beside the bound: both planes, q2 and the output once, or
+    7 int8 products a (row, k, column), whichever is longer."""
+    from chip_smoke import dev_i8
+    from sdk_tpu_torch.doublepir import server_torch as st
+
+    rows, l3 = dp.n * dp.delta(), -(-dp.l // 3) * 3
+    lo = dev_i8(gen, (rows, l3), dev, 0, 128)
+    hi = dev_i8(gen, (rows, l3), dev, 0, 4)
+    out = {"shape": [rows, l3],
+           "form": "narrow" if hasattr(st, "_dot_narrow_launch") else "rows"}
+    for nq in (8, 1):
+        q2 = torch.randint(-(1 << 31), 1 << 31, (l3, nq), dtype=torch.int64,
+                           device=dev, generator=gen).to(torch.int32)
+        got = st.dot_i8pair_u32(lo, hi, q2)
+        for sl in (slice(0, 256), slice(rows - 256, rows)):
+            if not torch.equal(got[sl], st._dot_plain(lo[sl], hi[sl], q2, 0,
+                                                      False)):
+                raise AssertionError(f"a_2 nq={nq}: kernel != plain")
+        moved = 2 * rows * l3 + 4 * l3 * nq + 4 * rows * nq
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = 7 * 2 * rows * l3 * 8 / INT8_OPS_PER_S * 1e3
+        bnd = max(t_bytes, t_ops)
+
+        def stage():
+            return st.dot_i8pair_u32(lo, hi, q2)
+        ms = cuda_ms(stage, args.iters)
+        split = device_split(torch, stage, args.iters)
+        dev_ms = sum(v for k, v in split.items() if "dot_i8" in k)
+        out[f"nq{nq}"] = {"ms": ms,
+                          "device_split_ms": split, "device_ms": dev_ms,
+                          "bound_ms": bnd,
+                          "bound_by": "bytes" if t_bytes >= t_ops
+                          else "operations",
+                          "share_of_bound": bnd / dev_ms if dev_ms else None}
+        del q2, got
+    return out
+
+
+def bench_psum(torch, params, dev, gen, args) -> dict:
+    """Kernel M at the sharded read's shapes: D = 4 partials of a (dp=2,
+    db=4) mesh, (2, z, inst, trials / 2, num_per, R) int32, in the Spiral
+    form at R = 2 (a read) and R = 32 (a 16-batch), and in the wrapping
+    form (q = 0) at R = 2, each checked against the plain version. For each:
+    events over back-to-back calls, the profiler's device time of the
+    kernel and of any copy or memset the call makes (the parent's pointer
+    table is a host-to-device copy), the host time of a call (the wall of
+    200 enqueued calls before a synchronize), the byte bound, and
+    torch.stack(parts).sum(0) % q."""
+    import time
+
+    from sdk_tpu_torch.ops.shard import psum_mod, psum_mod_plain
+
+    z, inst, npr = params.poly_len, params.instances, 1 << params.db_dim_2
+    trials = params.n * params.n
+    qcol = torch.tensor(params.moduli, dtype=torch.int64,
+                        device=dev).reshape(2, 1, 1, 1, 1, 1)
+    out = {}
+    for label, R, form in (("read", 2, "spiral"), ("batch", 32, "spiral"),
+                           ("read_wrapping", 2, "wrapping")):
+        shape = (2, z, inst, trials // 2, npr, R)
+        if form == "spiral":
+            parts = [torch.randint(0, min(params.moduli), shape,
+                                   generator=gen, dtype=torch.int32,
+                                   device=dev) for _ in range(4)]
+            q = params.moduli
+            lib = lambda: torch.stack(parts).sum(0) % qcol  # noqa: E731
+        else:
+            parts = [torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                                   dtype=torch.int32, device=dev)
+                     for _ in range(4)]
+            q = 0
+            lib = lambda: torch.stack(parts).sum(0) & 0xFFFFFFFF  # noqa: E731
+        if not torch.equal(psum_mod(parts, q), psum_mod_plain(parts, q)):
+            raise AssertionError(f"psum_mod {label}: kernel != plain")
+
+        def call():
+            return psum_mod(parts, q)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_ms = (time.perf_counter() - t) / 200 * 1e3
+        torch.cuda.synchronize()
+        moved = 5 * parts[0].numel() * 4
+        row = {"shape": list(shape), "D": 4,
+               "ms": cuda_ms(call, 20), "host_ms": host_ms,
+               "plain_ms": cuda_ms(lambda: psum_mod_plain(parts, q), 3),
+               "library_ms": cuda_ms(lib, 5),
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        out[label] = row
+        del parts
+    # profiler times last: a session slows every later launch
+    for label, R, form in (("read", 2, "spiral"), ("batch", 32, "spiral"),
+                           ("read_wrapping", 2, "wrapping")):
+        shape = (2, z, inst, trials // 2, npr, R)
+        parts = [torch.randint(0, min(params.moduli), shape, generator=gen,
+                               dtype=torch.int32, device=dev)
+                 for _ in range(4)]
+        q = params.moduli if form == "spiral" else 0
+        split = device_split(torch, lambda: psum_mod(parts, q), 20,
+                             copies=True)
+        row = out[label]
+        row["device_split_ms"] = split
+        row["device_ms"] = sum(v for k, v in split.items() if "psum" in k)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"] \
+            if row["device_ms"] else None
+        del parts
+    return out
+
+
+def device_split(torch, fn, iters: int, copies: bool = False) -> dict:
     """Mean device ms a call of fn() of each CUDA kernel it launches, by
-    kernel name, from torch.profiler."""
+    kernel name, from torch.profiler; with ``copies`` its memory copies and
+    memsets too."""
     import re
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,8 +794,7 @@ def device_split(torch, fn, iters: int) -> dict:
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0)
-        if us and not e.key.startswith("Memcpy") and not e.key.startswith(
-                "Memset"):
+        if us and (copies or not e.key.startswith(("Memcpy", "Memset"))):
             m = re.search(r"(\w+)(<[^>]*>)?\(", e.key)
             name = (m.group(1) + (m.group(2) or "")) if m else e.key[:40]
             out[name] = out.get(name, 0.0) + us / iters / 1e3
@@ -844,11 +1004,11 @@ def main() -> int:
                     help="the checklist config of --kernel dot")
     ap.add_argument("--kernel", default="dense",
                     help="dense, compact, dot, ingest, migrate, r2g, "
-                         "answer, or a list of ntt, fold, pack")
+                         "answer, psum, or a list of ntt, fold, pack")
     args = ap.parse_args()
     kernels = args.kernel.split(",")
     if not (kernels in (["dense"], ["compact"], ["dot"], ["ingest"],
-                        ["migrate"], ["r2g"], ["answer"])
+                        ["migrate"], ["r2g"], ["answer"], ["psum"])
             or set(kernels) <= {"ntt", "fold", "pack"}):
         ap.error(f"--kernel {args.kernel}")
     import torch
@@ -888,10 +1048,17 @@ def main() -> int:
             out["r2g"]["blocks_per_sm"] = occ()
         print(json.dumps(out))
         return 0
+    if kernels == ["psum"]:
+        out = {"card": card, "root": os.path.abspath(args.root),
+               "psum": bench_psum(torch, params, dev, gen, args)}
+        out["psum"].update(kernel_report(_build, "psum_mod"))
+        print(json.dumps(out))
+        return 0
     if kernels == ["answer"]:
         out = {"card": card, "root": os.path.abspath(args.root),
                "answer": bench_answer(torch, dev, gen, args)}
         out["answer"].update(kernel_report(_build, "dp_matmul_u32"))
+        out["answer"]["a_2"].update(kernel_report(_build, "dp_dot_i8"))
         print(json.dumps(out))
         return 0
     if kernels == ["dot"]:
