@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the sdk_tpu_torch main paths once on one CUDA card: the Spiral
-private read over the bucket lifecycle, the bucket's HTTP service, and the
-DoublePIR checklist.
+private read over the bucket lifecycle, the bucket's HTTP service, the
+direct-upload read, and the DoublePIR checklist.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -69,6 +69,20 @@ Phases (any failure exits non-zero, with no result line):
    /list-keys, /meta, /modify, checkpoints of the compact and the dense
    index restored into new buckets that answer with the same bytes, /clear,
    /destroy.
+7b. direct upload: the small direct-upload config (each request carries
+   its public params, scan columns and GSW keys: no expansion) on the card
+   against the CPU plain versions byte for byte; then the full 1 GiB bucket
+   with "direct_upload": 1 (filled like 6, an 8.59 GB dense index, no
+   sparse expansion plan): 4 distinct seeded requests read alone and in two
+   16-query batches through dispatch_read_blobs, every response decoded;
+   DIRECT_READ_LAUNCHES hand launches for a read and for a 16-batch (1 A,
+   the scan, 1 A', 6 F, 1 G); the stage split (request parse, key prep,
+   column upload and unpack, A on the keys, scan, fold, G); one read and 4
+   readers at once over HTTP (a wider coalescing window:
+   DIRECT_BATCH_WINDOW_MS).
+7c. client_test: the CLIENT_TEST hook on the card at the fast params and
+   the small direct config: the right target answers the bytes of a read
+   without the hook; a wrong one raises ClientTestFailure with no G launch.
 8. DoublePIR kernels: K (int8 DB products: one plane, the lo/hi pair, with
    the colsum row, with the row-batch select) and L (wrapping u32 products,
    plain and packed, and its answer form: msg0 = a_1t @ A2 and h_2 = a_1t
@@ -109,7 +123,11 @@ Phases (any failure exits non-zero, with no result line):
    beside its latency bound (the dependent transforms of pack's dataflow
    times A's and A''s device time on one polynomial pair), from torch.profiler, last, because
    a profiler session slows the launches that follow it.
-12. report: launches of every kernel on the main paths (5, 6, 6b, 7 and
+11b. traces: tools/profile_trace_torch.py --target batch16, then --target
+   direct, each in a process of its own (a torch.profiler trace of the
+   1 GiB bucket's 16-batch: the device's idle share, the host gaps between
+   the hand launches; traces under build/traces/); their JSON lines.
+12. report: launches of every kernel on the main paths (5, 6, 6b, 7, 7b and
    10, each must be > 0 but E''s, D's and B's, which no path launches
    since E, G's out_words mode and the regev_to_gsw kernel; a service
    read and a 16-batch make READ_LAUNCHES each),
@@ -157,6 +175,10 @@ P256_ODD = ('{"n": 2, "nu_1": 2, "nu_2": 2, "p": 256, "q2_bits": 20, "t_gsw": 8,
             ' "t_conv": 4, "t_exp_left": 8, "t_exp_right": 8, "instances": 1,'
             ' "db_item_size": 1001, "version": 0}')
 BATCH_WINDOW_MS = 25.0          # the service's read-coalescing window
+# the direct-upload service's window: each request carries ~10 MB (13 MB of
+# JSON), which the server's handler threads decode one at a time under the
+# GIL while the leader parses its batch, so 4 readers arrive ~0.1-1 s apart
+DIRECT_BATCH_WINDOW_MS = 2000.0
 # integer operations of one Harvey butterfly, as the A / A' rows count them
 BUTTERFLY_OPS = 6
 # kernels held against their plain versions that no main path launches:
@@ -171,6 +193,13 @@ EXPANSION_LAUNCHES = 12
 # hand launches of a read, the same for a 16-batch: the expansion's 12, the
 # scan, the fold input's A', 6 F, and 1 G for pack + encode
 READ_LAUNCHES = 21
+# hand launches of a direct-upload read, the same for a 16-batch: 1 A for the
+# batch's GSW keys, the scan, the fold input's A', 6 F and 1 G
+DIRECT_READ_LAUNCHES = 10
+# the direct-upload config of tests/test_kv_service.py:137
+DIRECT_SMALL = ('{"direct_upload": 1, "n": 2, "nu_1": 4, "nu_2": 2, "p": 256,'
+                ' "q2_bits": 20, "t_gsw": 8, "t_conv": 4, "t_exp_left": 8,'
+                ' "t_exp_right": 8}')
 
 
 def log(msg: str) -> None:
@@ -1263,10 +1292,22 @@ def random_rows(params, gen, idxs) -> dict:
     return {i: gen.integers(0, 256, n, dtype=np.uint8).tobytes() for i in idxs}
 
 
-def phase_small_configs(dev) -> None:
-    from sdk_tpu_torch.client import Client
+def small_db(params, gen, dev):
+    """Seeded random rows of every item and their dense index on ``dev``,
+    written by the plain ingest on the CPU."""
     from sdk_tpu_torch.kv.ingest import DbUpdateBuffer
     from sdk_tpu_torch.ops import spiral as sj
+
+    rows = random_rows(params, gen, range(params.num_items()))
+    buf = DbUpdateBuffer(params, "cpu")
+    for i, data in rows.items():
+        buf.upsert_raw(i, data)
+    return rows, buf.flush(torch.zeros(sj.db_shape(params),
+                                       dtype=torch.int8)).to(dev)
+
+
+def phase_small_configs(dev) -> None:
+    from sdk_tpu_torch.client import Client
     from sdk_tpu_torch.ops.server import SpiralServerTorch
     from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
                                       params_from_json)
@@ -1283,11 +1324,7 @@ def phase_small_configs(dev) -> None:
         query = client.generate_query(
             target, noise_rng=ChaCha20Rng(b"\x24" * 32),
             query_seed=b"\x25" * 32)
-        rows = random_rows(params, gen, range(params.num_items()))
-        buf = DbUpdateBuffer(params, "cpu")
-        for i, data in rows.items():
-            buf.upsert_raw(i, data)
-        db = buf.flush(torch.zeros(sj.db_shape(params), dtype=torch.int8))
+        rows, db = small_db(params, gen, "cpu")
         responses = []
         for device in (dev, "cpu"):
             srv = SpiralServerTorch(params, device)
@@ -2629,6 +2666,375 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
     return out
 
 
+def direct_params(params):
+    """``params`` with direct-upload queries (sdk_tpu/params.py:259): each
+    request carries its scan columns, its GSW keys and its public params,
+    and the server expands nothing."""
+    from sdk_tpu_torch.params import params_from_json, params_to_json_obj
+
+    return params_from_json(json.dumps({**params_to_json_obj(params),
+                                        "direct_upload": 1}))
+
+
+def direct_blob(params, seed: int, idx: int):
+    """A seeded client and its direct-upload request for item ``idx``: the
+    serialized public params, then the query."""
+    from sdk_tpu_torch.client import Client
+    from sdk_tpu_torch.rng import ChaCha20Rng
+
+    client = Client(params)
+    setup = client.generate_keys_from_seed(
+        bytes([seed]) * 32, noise_rng=ChaCha20Rng(bytes([seed + 1]) * 32),
+        pp_seed=bytes([seed + 2]) * 32).serialize(params)
+    query = client.generate_query(idx, noise_rng=ChaCha20Rng(
+        bytes([seed + 3]) * 32), query_seed=bytes([seed + 4]) * 32)
+    return client, setup + query.serialize(params)
+
+
+def direct_small(dev) -> dict:
+    """The small direct-upload config (tests/test_kv_service.py:137) on the
+    card and on the CPU: a single read and a 3-query batch (padded to 4),
+    byte for byte, every response decoded."""
+    from sdk_tpu_torch.client import PublicParameters, Query
+    from sdk_tpu_torch.ops.server import SpiralServerTorch
+    from sdk_tpu_torch.params import params_from_json
+
+    params = params_from_json(DIRECT_SMALL)
+    rows, db = small_db(params, np.random.default_rng(SEED + 10), "cpu")
+    head = params.setup_bytes()
+    idxs = [(5 + 41 * i) % params.num_items() for i in range(3)]
+    made = [direct_blob(params, 0x20 + 8 * i, idx)
+            for i, idx in enumerate(idxs)]
+    reqs = [(PublicParameters.deserialize(params, b[:head]),
+             Query.deserialize(params, b[head:])) for _, b in made]
+    out = {}
+    for device in (dev, "cpu"):
+        srv = SpiralServerTorch(params, device)
+        srv.set_db(db)
+        out[str(device)] = ([srv.process_query(*reqs[0])]
+                            + srv.dispatch_queries_batched(reqs)())
+    got = out[str(dev)]
+    if got != out["cpu"]:
+        raise AssertionError("direct small: card responses differ from the "
+                             "CPU plain versions'")
+    # got: the single read of request 0, then the batch of requests 0-2
+    for k, resp in zip([0, 0, 1, 2], got):
+        idx = idxs[k]
+        if made[k][0].decode_response(resp)[:len(rows[idx])] != rows[idx]:
+            raise AssertionError("direct small: a response does not decode")
+    log(f"[direct] small config {DIRECT_SMALL}: a read and a 3-query batch "
+        f"on the card equal the CPU plain versions byte for byte, decode")
+    return {"response_bytes": len(got[0])}
+
+
+def direct_stage_breakdown(srv, blobs: list, reps: int = 3) -> dict:
+    """Wall ms of each stage of a direct-upload dispatch of ``blobs``,
+    synchronised per stage (the launches are not counted): parse
+    (PublicParameters.deserialize and Query.deserialize of every blob, on
+    the host; taken once), keys (pp_to_device), columns (the buffers'
+    upload and unpack, direct_columns), ntt_keys (kernel A on the GSW keys
+    and their negation, direct_keys), scan, fold (A' and F) and pack_encode
+    (G); medians of ``reps`` for all but parse."""
+    from sdk_tpu_torch.client import PublicParameters, Query
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.ops.server import pp_to_device
+    from sdk_tpu_torch.ops.shard import fold_columns
+
+    eng = srv.engine
+    params = eng.params
+    head = params.setup_bytes()
+    nq = len(blobs)
+    pad = 1 << (nq - 1).bit_length()
+    t = time.perf_counter()
+    parsed = [(PublicParameters.deserialize(params, b[:head]),
+               Query.deserialize(params, b[head:])) for b in blobs]
+    out = {"parse": (time.perf_counter() - t) * 1e3}
+    queries = [q for _, q in parsed]
+    times: dict[str, list] = {k: [] for k in ("keys", "columns", "ntt_keys",
+                                              "scan", "fold", "pack_encode")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        pps = [pp_to_device(params, pp, eng.device) for pp, _ in parsed]
+        mark()
+        cols = eng.direct_columns(queries, pad)
+        mark()
+        v_folding, v_neg = eng.direct_keys(queries)
+        mark()
+        inter = sj.firstdim_multiply(params, eng.db, cols)
+        mark()
+        inter = inter.reshape(inter.shape[:-1] + (pad, 2))[..., :nq, :]
+        folded = fold_columns(params, inter, v_folding, v_neg)
+        mark()
+        eng._pack_encode(folded, [pp["v_packing"] for pp in pps])
+        mark()
+        for k, a, b in zip(times, stamps, stamps[1:]):
+            times[k].append((b - a) * 1e3)
+    out.update({k: float(np.median(v)) for k, v in times.items()})
+    return out
+
+
+def check_direct_launches(params, per_read: dict, per_batch: dict) -> None:
+    """A direct-upload read and 16-batch of the 1 GiB bucket make the same
+    DIRECT_READ_LAUNCHES hand launches: A on the batch's GSW keys, the
+    scan, the fold input's A', one F a round and one G; no expansion,
+    regev_to_gsw, B or D."""
+    want = {"ntt_forward": 1, "scan": 1, "ntt_inverse": 1,
+            "fold_round": params.db_dim_2, "pack": 1}
+    if per_read != per_batch or per_read != want \
+            or sum(per_read.values()) != DIRECT_READ_LAUNCHES:
+        raise AssertionError(f"direct hand launches: a read {per_read}, a "
+                             f"16-batch {per_batch}; want {want} "
+                             f"({DIRECT_READ_LAUNCHES}) each")
+    log(f"[direct] hand launches: {DIRECT_READ_LAUNCHES} for a read and for a "
+        f"16-batch ({per_read})")
+
+
+def phase_direct(params, dev, launches: Launches) -> dict:
+    """Direct-upload reads of the full 1 GiB bucket (the bucket's params
+    with "direct_upload": 1; an 8.59 GB dense index): the small config
+    against the CPU first, then 4 distinct seeded requests (each made once
+    on the host: seconds a query) read alone and in two 16-query batches
+    through dispatch_read_blobs, every response decoded; the launch counts;
+    the stage split; one read and 4 readers at once over HTTP."""
+    from sdk_tpu_torch.clients.api import API
+    from sdk_tpu_torch.ops import spiral as sj
+    from sdk_tpu_torch.server.http import serve
+    from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
+
+    out = {"small": direct_small(dev)}
+    dparams = direct_params(params)
+    out["query_bytes"] = dparams.query_bytes()
+    out["setup_bytes"] = dparams.setup_bytes()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = SpiralKvServerTorch(dparams, device=dev)
+    n_items = dparams.num_items()
+    gen = np.random.default_rng(SEED + 11)
+    step = n_items // 8
+    for s in range(0, n_items, step):
+        for i, data in random_rows(dparams, gen, range(s, s + step)).items():
+            srv.update_item_raw(i, data)
+        srv.flush()
+    keys = distinct_row_keys(n_items, 4)
+    values = {k: bytes(gen.integers(0, 256, value_len(dparams),
+                                     dtype=np.uint8)) for k in keys}
+    write_values(srv, values)
+    srv.flush()
+    out["fill_s"] = time.perf_counter() - t0
+    meta = srv.meta()
+    if meta["index_layout"] != "dense" or meta["sparse_expansion"] \
+            or srv.engine._splan is not None \
+            or meta["pir_scheme"].get("direct_upload") != 1:
+        raise AssertionError(f"direct bucket: {meta}")
+    log(f"[direct] filled {n_items} items and {len(keys)} keys in "
+        f"{out['fill_s']:.1f} s; dense index, no sparse expansion plan; "
+        f"{out['query_bytes']} query + {out['setup_bytes']} setup bytes a "
+        f"request")
+
+    from sdk_tpu_torch.kv.key_value import row_from_key
+
+    t = time.perf_counter()
+    made = [direct_blob(dparams, 0x90 + 8 * i, row_from_key(n_items, k))
+            for i, k in enumerate(keys)]
+    out["client_keys_and_query_s_each"] = (time.perf_counter() - t) / 4
+    clients = [c for c, _ in made]
+    single = [b for _, b in made]
+    batch = [single[i % 4] for i in range(16)]
+
+    def reads(blob_lists):
+        walls, resps = [], []
+        for blobs in blob_lists:
+            t = time.perf_counter()
+            resps.append(srv.dispatch_read_blobs(blobs)())
+            walls.append((time.perf_counter() - t) * 1e3)
+        return walls, resps
+
+    (lat, r1), c1 = launches.run(lambda: reads([[b] for b in single]))
+    (bt, r16), c16 = launches.run(lambda: reads([batch, batch]))
+    for i, resp in enumerate(r1):
+        check_value(clients[i], resp[0], keys[i], values[keys[i]])
+    for resps in r16:
+        if resps[:4] != [r[0] for r in r1]:
+            raise AssertionError("a 16-batch's responses differ from the "
+                                 "single reads' bytes")
+        for i, resp in enumerate(resps):
+            check_value(clients[i % 4], resp, keys[i % 4], values[keys[i % 4]])
+    per_read = {k: v // 4 for k, v in c1.items() if v}
+    per_batch = {k: v // 2 for k, v in c16.items() if v}
+    check_direct_launches(dparams, per_read, per_batch)
+    out.update(single_read_ms_all=lat,
+               single_read_ms_median=float(np.median(lat)),
+               batch16_ms_all=bt, batch16_ms_median=float(np.median(bt)),
+               launches_per_single_read=per_read,
+               launches_per_batch16=per_batch,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    log(f"[direct] 4 single reads and 2 x 16-query batches through "
+        f"dispatch_read_blobs decoded; single median "
+        f"{out['single_read_ms_median']:.2f} ms, batch "
+        f"{out['batch16_ms_median']:.2f} ms")
+    out["stages_ms_single"] = direct_stage_breakdown(srv, single[:1])
+    out["stages_ms_batch16"] = direct_stage_breakdown(srv, batch)
+    log(f"[direct] stages, a read {out['stages_ms_single']} ms; a 16-batch "
+        f"{out['stages_ms_batch16']} ms")
+
+    httpd = serve(srv, 0, block=False, batch_window_ms=DIRECT_BATCH_WINDOW_MS)
+    base = f"http://localhost:{httpd.server_address[1]}"
+    out["batch_window_ms"] = DIRECT_BATCH_WINDOW_MS
+    try:
+        api = API("", base)
+        if api.meta()["pir_scheme"].get("direct_upload") != 1:
+            raise AssertionError("/meta does not say direct_upload")
+        t = time.perf_counter()
+        resp = api.private_read("", [single[0]])[0]
+        out["http_single_ms"] = (time.perf_counter() - t) * 1e3
+        check_value(clients[0], resp, keys[0], values[keys[0]])
+        results: dict = {}
+        errors: list = []
+        gate = threading.Barrier(4)
+
+        def reader(i):
+            try:
+                gate.wait()
+                results[i] = api.private_read("", [single[i]])[0]
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader, args=(i,))
+                   for i in range(4)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        out["http_4_readers_wall_ms"] = (time.perf_counter() - t) * 1e3
+        if errors:
+            raise errors[0]
+        for i in range(4):
+            check_value(clients[i], results[i], keys[i], values[keys[i]])
+        out["read_coalescer"] = api._get(base + "/metrics")["read_coalescer"]
+        if out["read_coalescer"]["max_batch"] <= 1:
+            raise AssertionError(f"4 concurrent direct readers were not "
+                                 f"coalesced: {out['read_coalescer']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    log(f"[direct] over HTTP: a read {out['http_single_ms']:.2f} ms; 4 "
+        f"readers at once {out['http_4_readers_wall_ms']:.2f} ms (coalescer "
+        f"{out['read_coalescer']}), decoded")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_client_test(dev) -> dict:
+    """The CLIENT_TEST hook on the card (fast params and the small direct
+    config): with the right target a single read passes and answers the
+    bytes it answers without the hook; with a wrong one it raises
+    ClientTestFailure after the fold and before G (no pack launch)."""
+    from sdk_tpu_torch import _build, debug_hooks
+    from sdk_tpu_torch.client import Client
+    from sdk_tpu_torch.ops.server import SpiralServerTorch
+    from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
+                                      params_from_json)
+    from sdk_tpu_torch.rng import ChaCha20Rng
+
+    out = {}
+    gen = np.random.default_rng(SEED + 12)
+    for label, params in (("fast v0", get_fast_expansion_testing_params()),
+                          ("direct small", params_from_json(DIRECT_SMALL))):
+        rows, db = small_db(params, gen, dev)
+        target = 29 % params.num_items()
+        client = Client(params)
+        pp = client.generate_keys_from_seed(
+            b"\x31" * 32, noise_rng=ChaCha20Rng(b"\x32" * 32),
+            pp_seed=b"\x33" * 32)
+        query = client.generate_query(target, noise_rng=ChaCha20Rng(
+            b"\x34" * 32), query_seed=b"\x35" * 32)
+        srv = SpiralServerTorch(params, dev)
+        srv.set_db(db)
+        plain = srv.process_query(pp, query)
+        # p = 256: the mod-p words of instance 0 / trial 0 are the row's
+        # first chunk of bytes
+        chunk = np.zeros(params.poly_len, dtype=np.uint64)
+        first = np.frombuffer(rows[target][:params.bytes_per_chunk()],
+                              dtype=np.uint8)
+        chunk[:len(first)] = first
+        try:
+            debug_hooks.set_client_test(client.sk_reg, chunk)
+            _build.reset_launches()
+            hooked = srv.process_query(pp, query)
+            ok_counts = dict(_build.LAUNCHES)
+            bad = (chunk + np.uint64(1)) % np.uint64(params.pt_modulus)
+            debug_hooks.set_client_test(client.sk_reg, bad)
+            _build.reset_launches()
+            try:
+                srv.process_query(pp, query)
+            except debug_hooks.ClientTestFailure as e:
+                width = e.noise_width_log2
+            else:
+                raise AssertionError(f"{label}: a wrong target passed")
+            bad_counts = dict(_build.LAUNCHES)
+        finally:
+            debug_hooks.clear_client_test()
+        if hooked != plain or ok_counts["pack"] != 1:
+            raise AssertionError(f"{label}: the hook changed the response "
+                                 f"or G did not run: {ok_counts}")
+        if bad_counts["pack"] != 0 or bad_counts["fold_round"] <= 0:
+            raise AssertionError(f"{label}: a failing check must stop "
+                                 f"after F and before G: {bad_counts}")
+        out[label] = {"launches_passing": {k: v for k, v in
+                                           ok_counts.items() if v},
+                      "launches_failing": {k: v for k, v in
+                                           bad_counts.items() if v},
+                      "failing_noise_width_log2": width}
+        log(f"[client_test] {label}: the right target passes with the "
+            f"same bytes; a wrong one raises ClientTestFailure after F, "
+            f"with no G launch ({bad_counts['fold_round']} F, noise width "
+            f"log2 {width:.2f})")
+    return out
+
+
+def phase_traces() -> dict:
+    """tools/profile_trace_torch.py on the 16-batch of expansion queries
+    and on the direct-upload 16-batch, each in a process of its own (a
+    profiler session slows every later launch of its process); the traces
+    are written under build/traces/. Returns their JSON lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for target, iters, want in (("batch16", 2, READ_LAUNCHES),
+                                ("direct", 1, DIRECT_READ_LAUNCHES)):
+        res = subprocess.run(
+            [sys.executable, os.path.join(root, "tools",
+                                          "profile_trace_torch.py"),
+             "--target", target, "--iters", str(iters), "--out",
+             os.path.join(root, "build", "traces", target)],
+            capture_output=True, text=True, timeout=600, cwd=root)
+        if res.returncode != 0:
+            raise AssertionError(f"profile_trace_torch --target {target}: "
+                                 f"rc {res.returncode}\n{res.stderr[-3000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        counted = sum(line["launches_per_iter"].values())
+        if counted != want:
+            raise AssertionError(f"traced {target}: {counted} hand launches "
+                                 f"an iteration, want {want}")
+        traced = [r["hand_launches"] for r in line["reads"]]
+        if any(n not in (0, want) for n in traced):
+            raise AssertionError(f"traced {target}: the trace holds "
+                                 f"{traced} hand kernels, want {want}")
+        print("[trace] " + json.dumps(line), flush=True)
+        out[target] = {k: line.get(k) for k in ("trace_file",
+                                                "idle_share_median",
+                                                "window_ms_median")}
+    return out
+
+
 def dev_u32(gen: torch.Generator, shape, dev) -> torch.Tensor:
     """Random uint32 bit patterns as int32, made on the card."""
     return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
@@ -3179,6 +3585,8 @@ def main() -> int:
     del probe
     service = phase_service(params, sessions, dev, launches)
     del sessions
+    direct = phase_direct(params, dev, launches)
+    client_test = phase_client_test(dev)
     phase_doublepir_kernels(dev, table)
     log("[dp kernels] K (one plane, pair, colsum row, row-batch select) and "
         "L (plain, packed) equal their plain versions at the checklist "
@@ -3186,6 +3594,8 @@ def main() -> int:
     phase_doublepir_small(dev)
     checklist = phase_checklist_full(dev, table, launches)
     phase_device_times(params, dev, table)
+    torch.cuda.empty_cache()
+    traces = phase_traces()
 
     for name in _build.LAUNCHES:
         n = launches.total.get(name, 0)
@@ -3197,7 +3607,10 @@ def main() -> int:
                                   "launches": launches.total,
                                   "lifecycle": lifecycle, "full": full,
                                   "sharded": sharded, "service": service,
-                                  "checklist": checklist}))
+                                  "direct": direct,
+                                  "client_test": client_test,
+                                  "checklist": checklist,
+                                  "traces": traces}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))
     print(json.dumps({"ok": True, "device": {

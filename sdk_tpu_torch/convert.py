@@ -41,7 +41,7 @@ def db_from_host_tensor(params: Params, db_u64: np.ndarray) -> torch.Tensor:
     vals = np.ascontiguousarray(db_u64.transpose(3, 2, 0, 1, 4, 5))
     if vals.max(initial=0) >> (LIMB_BITS * NUM_LIMBS):
         raise ValueError("DB residues must be < 2^28")
-    return db_limbs(params, torch.from_numpy(vals.astype(np.int64)))
+    return db_limbs(params, torch.from_numpy(vals.astype(np.int32)))
 
 
 def pp_from_jax(pp_dev: dict) -> dict:

@@ -102,7 +102,11 @@ def _launch(params: Params, x: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 def ntt_forward_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Forward NTT with exact int64 butterflies (x + w*y, x - w*y) mod q in
-    the reference's stage order, each stage in place on its two halves."""
+    the reference's stage order, each stage in place on its two halves.
+    Only the products are reduced (to [0, q), whatever y's sign): a stage
+    moves every value by less than q, so after stage s they lie within
+    (s + 2) q of 0 (< 2^32 at n = 2048) and w*y within 2^63; one reduction
+    at the end makes them canonical."""
     n = params.poly_len
     q = moduli_column(params, x.device, 2)            # (crt, 1, 1)
     w_all = tables(params, x.device)[:, 0].to(torch.int64) & 0xFFFFFFFF
@@ -113,17 +117,17 @@ def ntt_forward_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
         v = op.view(lead + (m, 2, n >> (mm + 1)))
         w = w_all[:, m:2 * m].unsqueeze(-1)           # (crt, m, 1)
         xs, ys = v[..., 0, :], v[..., 1, :]
-        ys.mul_(w).remainder_(q)                      # w*y
-        t = xs + q - ys                               # x - w*y + q
-        xs.add_(ys).remainder_(q)
-        torch.remainder(t, q, out=ys)
-    return op.to(torch.int32)
+        ys.mul_(w).remainder_(q)                      # w*y mod q
+        xs.add_(ys)                                   # x + w*y
+        ys.mul_(-2).add_(xs)                          # x - w*y
+    return op.remainder_(q.reshape(-1, 1)).to(torch.int32)
 
 
 def ntt_inverse_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Inverse NTT with exact int64 butterflies ((x + y)/2, (x - y)*w) mod q,
-    each stage in place on its two halves; the table's inverse twiddles are
-    pre-halved, so 1/n is carried."""
+    each stage in place on its two halves (x - y may be negative; the
+    reductions return [0, q)); the table's inverse twiddles are pre-halved,
+    so 1/n is carried."""
     n = params.poly_len
     q = moduli_column(params, x.device, 2)
     inv2 = (q + 1) // 2
@@ -135,9 +139,9 @@ def ntt_inverse_plain(params: Params, x: torch.Tensor) -> torch.Tensor:
         v = op.view(lead + (h, 2, n >> (mm + 1)))
         w = w_all[:, h:2 * h].unsqueeze(-1)
         xs, ys = v[..., 0, :], v[..., 1, :]
-        t = xs + q - ys                               # x - y + q < 2q
-        xs.add_(ys).mul_(inv2).remainder_(q)
-        torch.mul(t, w, out=ys).remainder_(q)
+        xs.add_(ys)                                   # x + y
+        ys.mul_(-2).add_(xs).mul_(w).remainder_(q)    # (x - y) * w
+        xs.mul_(inv2).remainder_(q)
     return op.to(torch.int32)
 
 

@@ -3,15 +3,16 @@
 Ports sdk_tpu/ops/server_jax.py. Every stage of a read runs on the
 engine's device: expansion (dense, or compacted sparse once a populated set
 is installed) -> first-dim scan (dense or compact index) -> fold -> pack ->
-encode; only the wire words come back to the host. With a mesh
-(ops/shard.py) the dense index is cut over the mesh's devices: the scan runs
-per shard, kernel M sums each dp group's partials, F folds per dp group, and
-expansion, pack and encode run on the mesh's home device.
+encode; only the wire words come back to the host. A direct-upload query
+(params.expand_queries false) carries its scan columns and GSW keys itself:
+they are uploaded, and the keys go through kernel A, in place of the
+expansion. With a mesh (ops/shard.py) the dense index is cut over the
+mesh's devices: the scan runs per shard, kernel M sums each dp group's
+partials, F folds per dp group, and expansion, pack and encode run on the
+mesh's home device. While the CLIENT_TEST hook is set (debug_hooks), a
+single read decrypts its folded ciphertext before the pack.
 Reference pipeline: lib/server/src/server.rs:17-99,
 lib/spiral-rs/src/server.rs:650-741.
-
-Not ported yet (each raises NotImplementedError; see ROADMAP.md Queue 1):
-direct-upload queries and the CLIENT_TEST mid-pipeline decryption hook.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from .. import poly as hpoly
 from ..client import PublicParameters, Query
-from ..debug_hooks import client_test_active
+from ..debug_hooks import check_folded_ct, client_test_active
 from ..params import Params
 from ..telemetry import GLOBAL_TIMERS
 
@@ -31,8 +32,6 @@ from .encode import ResponseEncodePlan
 from .modops import shoup_companion_arr, u32_bits
 from .shard import (Mesh, ShardedDb, ShardedSpiralScan, check_mesh,
                     fold_columns)
-
-_NOT_PORTED = "not ported to sdk_tpu_torch yet (ROADMAP.md, Queue 1)"
 
 
 def db_tensor_to_device(params: Params, db_host: np.ndarray,
@@ -98,15 +97,16 @@ class SpiralServerTorch:
     dp) and ``device`` is the mesh's home device (server_jax.py:202-210)."""
 
     def __init__(self, params: Params, device="cuda", mesh: Mesh | None = None):
-        if not params.expand_queries:
-            raise NotImplementedError(f"direct-upload queries are {_NOT_PORTED}")
         self.params = params
         self.mesh = check_mesh(mesh)
         self._sharded = None if mesh is None else ShardedSpiralScan(params, mesh)
         self.device = mesh.home if mesh is not None else torch.device(device)
-        self.plan = sj.ExpansionPlan(params, self.device)
-        self._schedule = sj.dense_schedule(
-            params, params.t_gsw * params.db_dim_2, self.device)
+        # a direct-upload engine expands nothing (server_jax.py:170)
+        self.plan = self._schedule = None
+        if params.expand_queries:
+            self.plan = sj.ExpansionPlan(params, self.device)
+            self._schedule = sj.dense_schedule(
+                params, params.t_gsw * params.db_dim_2, self.device)
         g = hpoly.to_ntt(params, hpoly.build_gadget(params, 2, 2 * params.t_gsw))
         self.gadget_ntt = u32_bits(g, self.device)
         # the GSW leaves' positions among a dense expansion's leaves
@@ -159,9 +159,10 @@ class SpiralServerTorch:
         """Enable compacted sparse query expansion: only the ciphertexts
         whose first-dim indices are in ``populated`` are expanded (see
         spiral.SparseExpansionPlan). None, an empty set or the full set
-        restore dense expansion (server_jax.py:236-255)."""
+        restore dense expansion (server_jax.py:236-255). A direct-upload
+        engine expands nothing and keeps no plan."""
         params = self.params
-        if populated is None:
+        if populated is None or not params.expand_queries:
             self._splan = None
             return
         pop = sorted({int(i) for i in populated})
@@ -228,11 +229,74 @@ class SpiralServerTorch:
             v_neg = v_folding
         return cols.reshape(crt, n, dim0, 2 * columns), v_folding, v_neg
 
+    def direct_columns(self, queries: list,
+                       columns: int | None = None) -> torch.Tensor:
+        """Direct-upload queries' reoriented buffers (each v_buf: [z][j][r]
+        u64 words, CRT channel 0 in the low 32 bits, 1 in the high) -> the
+        scan columns (crt, z, dim0, 2 * columns) int32, laid out as
+        expand_queries lays them out (server_jax.py:425-431). Each buffer is
+        uploaded as it is, as int64, and split on the device."""
+        params = self.params
+        nq = len(queries)
+        columns = columns or nq
+        n, dim0 = params.poly_len, 1 << params.db_dim_1
+        if params.crt_count != 2:
+            raise ValueError("direct-upload buffers pack two CRT channels")
+        buf = torch.empty((nq, n, dim0, 2), dtype=torch.int64,
+                          device=self.device)
+        for i, q in enumerate(queries):
+            words = np.ascontiguousarray(q.v_buf, dtype=np.uint64)
+            buf[i].copy_(torch.from_numpy(words.view(np.int64)
+                                          .reshape(n, dim0, 2)))
+        v = buf.permute(1, 2, 0, 3)                    # (z, dim0, NQ, 2)
+        cols = torch.empty((2, n, dim0, columns, 2), dtype=torch.int32,
+                           device=self.device)
+        cols[0, :, :, :nq] = v & 0xFFFFFFFF
+        cols[1, :, :, :nq] = v >> 32
+        if columns > nq:
+            cols[:, :, :, nq:] = cols[:, :, :, :1]
+        return cols.reshape(2, n, dim0, 2 * columns)
+
+    def direct_keys(self, queries: list):
+        """Direct-upload queries' raw GSW cts (each v_ct: db_dim_2 x (2,
+        2*t_gsw, z) u64) -> the folding keys (NQ, db_dim_2, 2, 2*t_gsw,
+        crt, z), one launch of kernel A for the batch (server_jax.py:432-
+        435), and their negations (gadget - v) mod q_c."""
+        params = self.params
+        nq, crt, n = len(queries), params.crt_count, params.poly_len
+        if params.db_dim_2 == 0:
+            v_folding = torch.zeros((nq, 0, 2, 2 * params.t_gsw, crt, n),
+                                    dtype=torch.int32, device=self.device)
+            return v_folding, v_folding
+        raw = np.stack([np.stack(q.v_ct) for q in queries])
+        v_ct = torch.from_numpy(raw.astype(np.int64)).to(self.device)
+        v_folding = sj.to_ntt(params, v_ct)
+        return v_folding, sj.negate_folding_keys(params, v_folding,
+                                                 self.gadget_ntt)
+
+    def query_to_device(self, pp_devs: list, queries: list,
+                        columns: int | None = None):
+        """A batch of either kind of query -> (scan columns (crt, z, dim0,
+        2 * columns), folding keys, their negations), as expand_queries
+        returns them: the expansion, or the direct-upload queries' own
+        columns and keys (server_jax.py:420-436)."""
+        if self.params.expand_queries:
+            return self.expand_queries(pp_devs, queries, columns)
+        return (self.direct_columns(queries, columns),
+                *self.direct_keys(queries))
+
     def expand_query(self, pp_dev: dict, query: Query):
         """Query ct -> (scan columns (crt, z, dim0, 2), folding keys
         (db_dim_2, 2, 2*t_gsw, crt, z)): expand_queries of one query."""
         q_arr, v_folding, _ = self.expand_queries([pp_dev], [query])
         return q_arr, v_folding[0]
+
+    def direct_query(self, query: Query):
+        """expand_query's direct-upload counterpart: one query's uploaded
+        scan columns (crt, z, dim0, 2) and folding keys (db_dim_2, 2,
+        2*t_gsw, crt, z)."""
+        v_folding, _ = self.direct_keys([query])
+        return self.direct_columns([query]), v_folding[0]
 
     def _pack_encode(self, folded: torch.Tensor, v_packings: list):
         """Folded cts (NQ, inst, trials, 2, 1, z) and each query's packing
@@ -249,10 +313,15 @@ class SpiralServerTorch:
         always splits into the scan kernel's column blocks; the fillers'
         columns are dropped after the scan. With a mesh the scan and fold
         run per shard (ShardedSpiralScan.scan_fold, server_jax.py:710-727).
-        Returns (NQ, words) int32."""
+        A direct-upload batch takes its columns and keys from the queries
+        (query_to_device) and runs the same scan, fold and pack. While the
+        CLIENT_TEST hook is set, a batch of one waits for its fold and
+        checks query 0's instance-0 / trial-0 folded ct before G is
+        launched (server_jax.py:552-556); larger batches are not checked
+        (server_jax.py:654). Returns (NQ, words) int32."""
         n_real = len(queries)
         pad_n = 1 << (n_real - 1).bit_length()
-        q_all, v_foldings, v_neg = self.expand_queries(pps, queries, pad_n)
+        q_all, v_foldings, v_neg = self.query_to_device(pps, queries, pad_n)
         if self._sharded is not None:
             folded = self._sharded.scan_fold(self.db, q_all, n_real,
                                              v_foldings, v_neg)
@@ -260,18 +329,19 @@ class SpiralServerTorch:
             inter = sj.firstdim_multiply(self.params, self.db, q_all)
             inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))[..., :n_real, :]
             folded = fold_columns(self.params, inter, v_foldings, v_neg)
+        if n_real == 1 and client_test_active():
+            ct = folded[0, 0, 0].cpu().numpy().astype(np.uint64)
+            check_folded_ct(self.params, ct)
         return self._pack_encode(folded, [pp["v_packing"] for pp in pps])
 
     # -- host orchestration --
 
-    def _check_supported(self) -> None:
-        if client_test_active():
-            raise NotImplementedError(f"the CLIENT_TEST hook is {_NOT_PORTED}")
+    def _require_db(self) -> None:
         if self.db is None:
             raise RuntimeError("no DB installed")
 
     def process_query(self, pp, query: Query) -> bytes:
-        self._check_supported()
+        self._require_db()
         with GLOBAL_TIMERS.stage("query_fused"):
             words = self._dispatch([self._pp_dev(pp)], [query])
             return self.encode_plan.to_bytes(words[0])
@@ -287,7 +357,7 @@ class SpiralServerTorch:
         stacked tensor, and kernel G reads each client's packing keys
         through a table of pointers, so there is no stacked-key cache to
         budget (the JAX engine's LRU, server_jax.py:183-195)."""
-        self._check_supported()
+        self._require_db()
         n_real = len(requests)
         words = self._dispatch([self._pp_dev(pp) for pp, _ in requests],
                                [q for _, q in requests])

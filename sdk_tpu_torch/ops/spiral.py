@@ -212,10 +212,10 @@ def db_shape(params: Params) -> tuple:
 
 
 def db_limbs(params: Params, vals: torch.Tensor) -> torch.Tensor:
-    """Residues (crt, z, inst, trials, num_per, dim0) (< 2^28) -> the dense
-    int8 DB tensor (see db_shape)."""
+    """Residues (crt, z, inst, trials, num_per, dim0) (< 2^28, any integer
+    dtype) -> the dense int8 DB tensor (see db_shape)."""
     crt, z, inst, trials, npr, dim0 = vals.shape
-    v = vals.reshape(crt, z, inst, trials, npr, dim0 // 4, 4)
+    v = vals.to(torch.int32).reshape(crt, z, inst, trials, npr, dim0 // 4, 4)
     limbs = torch.stack([((v >> (LIMB_BITS * k)) & 127).to(torch.int8)
                          for k in range(NUM_LIMBS)], dim=2)
     # (crt, z, L, inst, trials, npr, jw, 4) -> (crt, z, L, jw, inst, trials,
@@ -242,9 +242,12 @@ def db_write_items(params: Params, db: torch.Tensor, bins, cols,
 
 
 def db_values(db: torch.Tensor) -> torch.Tensor:
-    """Inverse of db_limbs: int64 (crt, z, inst, trials, num_per, dim0)."""
+    """Inverse of db_limbs: int32 (crt, z, inst, trials, num_per, dim0), the
+    residues (< 2^28) assembled from their limbs in place."""
     crt, z, L, jw, inst, trials, npr, four = db.shape
-    v = sum(db[:, :, k].to(torch.int64) << (LIMB_BITS * k) for k in range(L))
+    v = db[:, :, 0].to(torch.int32)
+    for k in range(1, L):
+        v |= db[:, :, k].to(torch.int32) << (LIMB_BITS * k)
     return v.permute(0, 1, 3, 4, 5, 2, 6).reshape(
         crt, z, inst, trials, npr, jw * four)
 
@@ -1088,6 +1091,17 @@ def get_v_folding_neg_plain(params: Params, v_folding: torch.Tensor,
     inv = _to_ntt_plain(params, invert_raw_pair(
         params, _from_ntt_plain(params, v_folding)))
     return add_mod(params, gadget_ntt[None], inv)
+
+
+def negate_folding_keys(params: Params, v_folding: torch.Tensor,
+                        gadget_ntt: torch.Tensor) -> torch.Tensor:
+    """(gadget - v) mod q_c word by word: get_v_folding_neg's words for
+    canonical folding keys v (..., db_dim_2, 2, 2*t_gsw, crt, n), as the
+    regev_to_gsw kernel's epilogue stores them. A few elementwise torch ops
+    on any device (the direct-upload read's negation)."""
+    q = moduli_column(params, v_folding.device).to(torch.int32)
+    d = gadget_ntt - v_folding
+    return torch.where(d < 0, d + q, d)
 
 
 def regev_to_gsw_tiling(units: int, sms: int) -> int:

@@ -266,16 +266,26 @@ class SpiralKvServerTorch:
         return uid in self.pub_params
 
     def _parse_request(self, request_bytes: bytes):
+        """A request blob -> (device key dict, Query): a session's uuid and
+        its query, or, for direct-upload params, the public params inline
+        before the query (kv_server.py:285-300), keyed anew for each
+        request."""
         params = self.params
-        want = UUID_V4_STR_BYTES + params.query_bytes()
+        head = (UUID_V4_STR_BYTES if params.expand_queries
+                else params.setup_bytes())
+        want = head + params.query_bytes()
         if len(request_bytes) != want:
             raise ValueError(f"request: {len(request_bytes)} bytes, want "
                              f"{want}")
-        uid = request_bytes[:UUID_V4_STR_BYTES].decode()
-        if uid not in self.pub_params:
-            raise KeyError(uid)
-        query = Query.deserialize(params, request_bytes[UUID_V4_STR_BYTES:])
-        return self.pub_params[uid], query
+        if params.expand_queries:
+            uid = request_bytes[:head].decode()
+            if uid not in self.pub_params:
+                raise KeyError(uid)
+            pp_dev = self.pub_params[uid]
+        else:
+            pp = PublicParameters.deserialize(params, request_bytes[:head])
+            pp_dev = pp_to_device(params, pp, self.device)
+        return pp_dev, Query.deserialize(params, request_bytes[head:])
 
     def private_read_one(self, request_bytes: bytes) -> bytes:
         with self.lock:
@@ -310,12 +320,17 @@ class SpiralKvServerTorch:
         query for row 0) through the real read path, so that the kernel
         build and first launches happen before traffic. It runs the index's
         current state (compact or dense, sparse or dense expansion), so call
-        it after the initial writes. Returns elapsed seconds."""
+        it after the initial writes. A direct-upload bucket's round carries
+        its public params inline (kv_server.py:350-359). Returns elapsed
+        seconds."""
         t0 = time.monotonic()
         client = Client(self.params)
-        pp = client.generate_keys()
+        setup = client.generate_keys().serialize(self.params)
         qbytes = client.generate_query(0).serialize(self.params)
-        uid = self.setup_raw(pp.serialize(self.params))
+        if not self.params.expand_queries:
+            self.private_read_blobs([setup + qbytes])
+            return time.monotonic() - t0
+        uid = self.setup_raw(setup)
         try:
             self.private_read_blobs([uid.encode() + qbytes])
         finally:

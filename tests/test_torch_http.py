@@ -35,7 +35,7 @@ from sdk_tpu_torch.clients.bucket_service import BucketService, connect_local
 from sdk_tpu_torch.kv.key_value import extract_result, row_from_key
 from sdk_tpu_torch.kv.write import unwrap_kv_pairs, update_row
 from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
-                                  params_from_json, params_to_json_obj)
+                                  params_to_json_obj)
 from sdk_tpu_torch.rng import ChaCha20Rng
 from sdk_tpu_torch.server import http as http_t
 from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
@@ -179,18 +179,6 @@ def test_http_routes_beside_read_and_write(live_server):
         with pytest.raises(ApiError) as e:
             api._post(base + path, body, compress=False)
         assert e.value.code == code
-
-
-def test_direct_upload_params_are_refused():
-    """Direct-upload queries are not ported: the bucket says so at
-    construction (tests/test_kv_service.py serves such a bucket from the
-    JAX package)."""
-    params = params_from_json(
-        '{"direct_upload": 1, "n": 2, "nu_1": 4, "nu_2": 2, "p": 256,'
-        ' "q2_bits": 20, "t_gsw": 8, "t_conv": 4, "t_exp_left": 8,'
-        ' "t_exp_right": 8}')
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpiralKvServerTorch(params, "cpu")
 
 
 def read_via_protocol(srv, key: str) -> bytes:
@@ -406,11 +394,11 @@ def test_private_read_bytes_equal_the_jax_service():
 
 # ---- a real server process (tests/test_e2e_subprocess.py) ----------------
 
-def spawn(tmp_path, *flags):
+def spawn(tmp_path, *flags, cfg: str = CFG):
     """python -m sdk_tpu_torch.server.http 0 params.json --cpu ...; waits
     for "Listening on <port>" and returns (process, port, lines seen)."""
     params_file = tmp_path / "params.json"
-    params_file.write_text(CFG)
+    params_file.write_text(cfg)
     env = {k: v for k, v in os.environ.items() if not k.startswith("SDK_TPU_")}
     env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.Popen(

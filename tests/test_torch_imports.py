@@ -29,9 +29,9 @@ def port_modules() -> list[str]:
 
 
 def test_every_module_imports_without_jax():
-    """Every port module and chip_smoke.py import with a meta-path finder
-    that refuses jax, jaxlib, sdk_tpu and every sdk_tpu.* module (not
-    sdk_tpu_torch)."""
+    """Every port module, chip_smoke.py and tools/profile_trace_torch.py
+    import with a meta-path finder that refuses jax, jaxlib, sdk_tpu and
+    every sdk_tpu.* module (not sdk_tpu_torch)."""
     mods = port_modules()
     assert {"sdk_tpu_torch.server.kv_server",
             "sdk_tpu_torch.server.doublepir_server",
@@ -59,7 +59,9 @@ def test_every_module_imports_without_jax():
             "        if name.split('.')[0] in ('jax', 'jaxlib', 'sdk_tpu'):\n"
             "            raise ImportError(f'refused: {name}')\n"
             "sys.meta_path.insert(0, Refuse())\n"
-            f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
+            "sys.path.insert(0, 'tools')\n"
+            f"for m in {mods + ['chip_smoke', 'profile_trace_torch']!r}: "
+            "importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sdk_tpu')]\n"
             "assert not bad, bad\n")
@@ -69,7 +71,8 @@ def test_every_module_imports_without_jax():
 
 
 def port_sources() -> list[Path]:
-    return list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_trace_torch.py"]
 
 
 def test_sources_never_import_jax():

@@ -787,6 +787,81 @@ def test_batched_engine_on_card_equals_cpu(cuda):
         assert sessions[k % 2][0].decode_response(responses[0][k])[:row_len] == row
 
 
+DIRECT_SMALL = params_from_json(
+    '{"direct_upload": 1, "n": 2, "nu_1": 4, "nu_2": 2, "p": 256,'
+    ' "q2_bits": 20, "t_gsw": 8, "t_conv": 4, "t_exp_left": 8,'
+    ' "t_exp_right": 8}')
+
+
+def test_direct_upload_read_and_batch_on_card_equal_cpu(cuda):
+    """Direct-upload requests (the public params inline, no expansion)
+    through a bucket on the card and one on the CPU fed the same rows: a
+    single read and a 3-query batch give the same bytes, decode, and launch
+    A once (the GSW keys), the scan, A' (the fold input), one F a round and
+    one G, with no expansion and no regev_to_gsw kernel."""
+    params = DIRECT_SMALL
+    row_len = params.instances * params.n * params.n * params.bytes_per_chunk()
+    items = [3, 17, 40, 63]
+    sessions = [_session(params, 0x81 + 4 * k) for k in range(3)]
+    blobs = [pp.serialize(params) + c.generate_query(
+        items[k], noise_rng=ChaCha20Rng(bytes([0x90 + k]) * 32),
+        query_seed=bytes([0xA0 + k]) * 32).serialize(params)
+        for k, (c, pp) in enumerate(sessions)]
+    responses, counts = [], []
+    for device in (cuda, "cpu"):
+        srv = SpiralKvServerTorch(params, device)
+        for i in items:
+            srv.update_item_raw(i, np.random.default_rng(i).integers(
+                0, 256, row_len, dtype=np.uint8).tobytes())
+        srv.flush()
+        _build.reset_launches()
+        single = srv.private_read_one(blobs[0])
+        one = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        responses.append([single] + srv.private_read_blobs(blobs))
+        counts.append((one, dict(_build.LAUNCHES)))
+    assert responses[0] == responses[1]
+    want = {"ntt_forward": 1, "scan_compact": 1, "ntt_inverse": 1,
+            "fold_round": params.db_dim_2, "pack": 1}
+    for c in counts[0]:
+        assert {k: v for k, v in c.items() if v} == want, c
+    for k, resp in enumerate(responses[0][1:]):
+        row = np.random.default_rng(items[k]).integers(
+            0, 256, row_len, dtype=np.uint8).tobytes()
+        assert sessions[k][0].decode_response(resp)[:row_len] == row
+
+
+def test_client_test_hook_on_card(cuda):
+    """CLIENT_TEST on the card: the right target passes and the response
+    is the one without the hook; a wrong target raises ClientTestFailure
+    before G is launched."""
+    from sdk_tpu_torch import debug_hooks
+
+    params = PARAMS
+    params_h = params_j.params_from_json(json.dumps(params_to_json_obj(params)))
+    client, pp = _session(params, 0x91)
+    query = client.generate_query(
+        11, noise_rng=ChaCha20Rng(b"\x94" * 32), query_seed=b"\x95" * 32)
+    item, db = server_host.generate_random_db_and_get_item(params_h, 11)
+    srv = SpiralServerTorch(params, cuda)
+    srv.set_db_host_tensor(db)
+    plain = srv.process_query(pp, query)
+    try:
+        debug_hooks.set_client_test(client.sk_reg, item[0, 0])
+        _build.reset_launches()
+        assert srv.process_query(pp, query) == plain
+        assert _build.LAUNCHES["pack"] == 1
+        debug_hooks.set_client_test(
+            client.sk_reg, (item[0, 0] + 1) % np.uint64(params.pt_modulus))
+        _build.reset_launches()
+        with pytest.raises(debug_hooks.ClientTestFailure):
+            srv.process_query(pp, query)
+        assert _build.LAUNCHES["pack"] == 0
+        assert _build.LAUNCHES["fold_round"] == params.db_dim_2
+    finally:
+        debug_hooks.clear_client_test()
+
+
 # ---- DoublePIR: kernels K (dp_dot_i8) and L (dp_matmul_u32) ---------------
 
 def _u32(rng, shape, bits=32):

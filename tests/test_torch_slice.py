@@ -9,6 +9,7 @@ JAX package's Params of the same JSON (J).
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,7 +98,17 @@ def test_batched_matches_single():
     single = [srv.process_query(pp, q) for pp, q in reqs]
     batched = fetch()
     assert batched == single
-    items = server_host.generate_random_db_and_get_item
     for client, idx, resp in zip(clients, targets, batched):
-        item, _ = items(J(params), idx)
-        assert client.decode_response(resp) == item_bytes(params, item)
+        assert client.decode_response(resp) == item_bytes(
+            params, planted_item(J(params), idx))
+
+
+def planted_item(params, idx: int, seed: int = 7):
+    """Item idx of server_host.generate_random_db_and_get_item's DB (the
+    same seeded draw), without building the DB again."""
+    rng = np.random.default_rng(seed)
+    items = rng.integers(0, params.pt_modulus,
+                         (params.instances, params.n * params.n,
+                          params.num_items(), params.poly_len), dtype=np.uint64)
+    return items[:, :, idx].reshape(params.instances * params.n, params.n,
+                                    params.poly_len)
