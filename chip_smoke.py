@@ -127,6 +127,14 @@ Phases (any failure exits non-zero, with no result line):
    direct, each in a process of its own (a torch.profiler trace of the
    1 GiB bucket's 16-batch: the device's idle share, the host gaps between
    the hand launches; traces under build/traces/); their JSON lines.
+11c. multiproc: tools/multiproc_worker_torch.py --case bucket, each rank a
+   process of its own on cuda:0: kernel C's R = 32 partials of the 1 GiB
+   bucket's index cut into W x 2 dim0 shards (2 a rank), summed across the
+   ranks by psum_mod_group (one all_gather of the int32 partials, then
+   kernel M on every rank), equal to C over the whole index and to
+   psum_mod_plain, M launched once a rank: two gloo ranks (the all_gather
+   through the host; two processes share the one card), then one NCCL
+   rank (W = 1; NCCL takes one rank a card); their JSON lines.
 12. report: launches of every kernel on the main paths (5, 6, 6b, 7, 7b and
    10, each must be > 0 but E''s, D's and B's, which no path launches
    since E, G's out_words mode and the regev_to_gsw kernel; a service
@@ -3035,6 +3043,55 @@ def phase_traces() -> dict:
     return out
 
 
+# the mesh across processes: (label, backend, ranks), each rank on cuda:0
+MULTIPROC_RUNS = (("gloo_2_ranks", "gloo", 2), ("nccl_1_rank", "nccl", 1))
+
+
+def phase_multiproc() -> dict:
+    """tools/multiproc_worker_torch.py --case bucket for each of
+    MULTIPROC_RUNS, over a fresh store under build/; any rank's failure, a
+    timeout (every rank is then killed) or a result that is not exact with
+    one M launch a rank fails the phase. Returns rank 0's JSON lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import multiproc_worker_torch as worker
+
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    base = tempfile.mkdtemp(prefix="multiproc_", dir=os.path.join(root, "build"))
+    out = {}
+    for label, backend, world in MULTIPROC_RUNS:
+        t = time.perf_counter()
+        ranks = worker.run_ranks(world, os.path.join(base, label),
+                                 ["--backend", backend, "--case", "bucket"],
+                                 timeout=300)
+        for r, (rc, _, err) in enumerate(ranks):
+            if rc != 0:
+                raise AssertionError(f"multiproc {label}: rank {r} rc {rc}"
+                                     f"\n{err[-3000:]}")
+        lines = [json.loads(x) for x in ranks[0][1].splitlines()
+                 if x.startswith("{")]
+        if len(lines) != 1:
+            raise AssertionError(f"multiproc {label}: {len(lines)} result "
+                                 f"lines from rank 0")
+        d = dict(lines[0], run_s=time.perf_counter() - t)
+        want = {"backend": backend, "world": world, "ok": True,
+                "m_launches": [1] * world,
+                "c_launches": [worker.LOCAL_PARTS] * world,
+                "max_abs_err_plain": [0] * world,
+                "max_abs_err_whole_index": 0,
+                "same_result_on_every_rank": True}
+        bad = {k: d.get(k) for k, v in want.items() if d.get(k) != v}
+        if bad:
+            raise AssertionError(f"multiproc {label}: {bad}, want "
+                                 f"{ {k: want[k] for k in bad} }")
+        log("[multiproc] " + json.dumps(d))
+        out[label] = d
+    log(f"[multiproc] {', '.join(out)}: psum_mod_group's sums of the 1 GiB "
+        f"bucket's scan partials equal C over the whole index; one M launch "
+        f"a rank")
+    return out
+
+
 def dev_u32(gen: torch.Generator, shape, dev) -> torch.Tensor:
     """Random uint32 bit patterns as int32, made on the card."""
     return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int64,
@@ -3596,6 +3653,7 @@ def main() -> int:
     phase_device_times(params, dev, table)
     torch.cuda.empty_cache()
     traces = phase_traces()
+    multiproc = phase_multiproc()
 
     for name in _build.LAUNCHES:
         n = launches.total.get(name, 0)
@@ -3610,7 +3668,8 @@ def main() -> int:
                                   "direct": direct,
                                   "client_test": client_test,
                                   "checklist": checklist,
-                                  "traces": traces}))
+                                  "traces": traces,
+                                  "multiproc": multiproc}))
     log(card)
     print(json.dumps({"kernels": list(table.rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -18,15 +18,21 @@ several times (logical shards, the port's counterpart of XLA's virtual host
 devices: the tests, ``--cpu`` and chip_smoke.py use them). Partials on other
 devices than a group's first are moved there with ``Tensor.to`` (a no-op for
 logical shards) before kernel M sums them.
+
+Across processes (JAX's mesh axis that spans processes), each rank of a
+``torch.distributed`` group holds its own parts: ``psum_mod_group`` gathers
+every rank's int32 parts and runs kernel M on them on every rank.
 """
 
 from __future__ import annotations
 
 import ctypes
+import datetime
 import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import _build
 from ..params import Params
@@ -179,6 +185,21 @@ def reduction_constants(q: int) -> tuple[int, int, int]:
     return q, (1 << 32) % q, ((1 << 64) - 1) // q
 
 
+def _vec4(n: int, chan: int, *ptrs: int) -> bool:
+    """Whether kernel M takes its 16-byte path: whole vectors in the tensor
+    and in each channel, every pointer on 16 bytes; otherwise it takes its
+    scalar path, equally exact."""
+    return n % 4 == 0 and chan % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def psum_mod_vec4(parts: list, q) -> bool:
+    """Whether kernel M reads these contiguous parts 16 bytes at a time (its
+    output, a fresh allocation of the caching allocator, is aligned)."""
+    n = parts[0].numel()
+    moduli = _moduli(q, parts[0].shape[0] if parts[0].ndim else 1)
+    return _vec4(n, n // len(moduli), *(p.data_ptr() for p in parts))
+
+
 def _psum_mod_launch(parts: list, q) -> torch.Tensor:
     """Kernel M on the first part's CUDA device: one pass over the parts
     checks them (int32, one shape), moves any on another device there and
@@ -204,7 +225,7 @@ def _psum_mod_launch(parts: list, q) -> torch.Tensor:
     n = out.numel()
     chan = n // len(moduli) if len(moduli) == 2 else n
     c0, c1 = (reduction_constants(m) for m in (moduli + moduli)[:2])
-    vec4 = vec4 and n % 4 == 0 and chan % 4 == 0 and out.data_ptr() % 16 == 0
+    vec4 = vec4 and _vec4(n, chan, out.data_ptr())
     _build.launch("psum_mod", "sdk_psum_mod", dev,
                   (ctypes.c_void_p * len(ptrs))(*ptrs), len(ptrs), n, chan,
                   *c0, *c1, int(vec4), out.data_ptr(), _build.stream_of(out))
@@ -223,6 +244,74 @@ def psum_mod(parts: list, q) -> torch.Tensor:
     if dev.type == "cpu":
         return psum_mod_plain([p.to(dev) for p in parts], q)
     raise ValueError(f"unsupported device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# kernel M across processes: a torch.distributed group
+# ---------------------------------------------------------------------------
+
+GROUP_BACKENDS = ("gloo", "nccl")
+# how long a rendezvous or a collective waits for the other ranks: a rank
+# that died must not leave the others blocked for torch's default 10 min
+GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def init_group(backend: str, init_method: str, rank: int, world_size: int):
+    """``torch.distributed.init_process_group`` with everything explicit:
+    the rendezvous (``file://PATH``, a FileStore every rank shares, or
+    ``tcp://localhost:PORT``), this rank and the world size; collectives
+    wait GROUP_TIMEOUT at most. Returns the default group."""
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=GROUP_TIMEOUT)
+    return dist.group.WORLD
+
+
+def all_gather_parts(local_parts: list, group=None) -> list:
+    """This rank's k int32 parts of one shape -> the W * k parts of every
+    rank of ``group`` in rank order (rank r's at r * k ... r * k + k - 1),
+    views of one (W, k, ...) tensor on this rank's device (its first
+    part's). Every rank must pass k parts of the same shape and dtype:
+    all_gather moves equal shapes.
+
+    One all_gather of the stacked parts. NCCL gathers on the card; gloo
+    gathers on the host, so CUDA parts are copied to the host and the
+    gathered parts back to the device, each copy explicit here. Refuses,
+    before any collective: no parts, parts of mixed shapes or dtypes, W * k
+    above MAX_PARTS (kernel M's part pointers), a backend other than gloo
+    or NCCL, an NCCL group with CPU parts."""
+    _check_parts(local_parts)
+    k, dev = len(local_parts), local_parts[0].device
+    world = dist.get_world_size(group)
+    if world * k > MAX_PARTS:
+        raise ValueError(f"psum_mod_group: {world} ranks x {k} parts is more "
+                         f"than kernel M's {MAX_PARTS}")
+    backend = str(dist.get_backend(group))
+    if backend not in GROUP_BACKENDS:
+        raise ValueError(f"psum_mod_group: backend {backend!r}, want one of "
+                         f"{GROUP_BACKENDS}")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"psum_mod_group: an NCCL group with parts on {dev}")
+    stack = torch.stack([p.to(dev) for p in local_parts])
+    wire = stack.cpu() if backend == "gloo" else stack
+    gathered = wire.new_empty((world,) + tuple(stack.shape))
+    dist.all_gather(list(gathered.unbind(0)), wire, group=group)
+    return list(gathered.to(dev).flatten(0, 1).unbind(0))
+
+
+def psum_mod_group(local_parts: list, q, group=None) -> torch.Tensor:
+    """psum_mod over a process group, the counterpart of JAX's
+    ``psum_mod(x, q, axis_name)`` over a mesh axis that spans processes
+    (sdk_tpu/ops/shard.py:42): ``local_parts`` are this rank's k int32
+    partials (a JAX process's local devices); ``q`` takes psum_mod's forms
+    (one modulus, the Spiral moduli per channel on axis 0, or 0 for the
+    sum mod 2^32). The W * k parts of all_gather_parts (every rank must
+    pass the same shape) are summed in rank order on this rank's device:
+    kernel M on a CUDA tensor, psum_mod_plain on a CPU tensor. Every rank
+    returns the same result."""
+    _check_parts(local_parts)
+    p0 = local_parts[0]
+    _moduli(q, p0.shape[0] if p0.ndim else 1)
+    return psum_mod(all_gather_parts(local_parts, group), q)
 
 
 # ---------------------------------------------------------------------------

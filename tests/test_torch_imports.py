@@ -23,15 +23,20 @@ ROOT = Path(__file__).resolve().parent.parent
 PARAMS = get_fast_expansion_testing_params()
 
 
+# the port's tools, imported as modules from tools/
+TOOLS = ["chip_smoke", "profile_trace_torch", "multiproc_worker_torch"]
+
+
 def port_modules() -> list[str]:
     return sorted(m.name for m in pkgutil.walk_packages(
         sdk_tpu_torch.__path__, "sdk_tpu_torch."))
 
 
 def test_every_module_imports_without_jax():
-    """Every port module, chip_smoke.py and tools/profile_trace_torch.py
-    import with a meta-path finder that refuses jax, jaxlib, sdk_tpu and
-    every sdk_tpu.* module (not sdk_tpu_torch)."""
+    """Every port module, chip_smoke.py, tools/profile_trace_torch.py and
+    tools/multiproc_worker_torch.py import with a meta-path finder that
+    refuses jax, jaxlib, sdk_tpu and every sdk_tpu.* module (not
+    sdk_tpu_torch)."""
     mods = port_modules()
     assert {"sdk_tpu_torch.server.kv_server",
             "sdk_tpu_torch.server.doublepir_server",
@@ -60,7 +65,7 @@ def test_every_module_imports_without_jax():
             "            raise ImportError(f'refused: {name}')\n"
             "sys.meta_path.insert(0, Refuse())\n"
             "sys.path.insert(0, 'tools')\n"
-            f"for m in {mods + ['chip_smoke', 'profile_trace_torch']!r}: "
+            f"for m in {mods + TOOLS!r}: "
             "importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'sdk_tpu')]\n"
@@ -72,7 +77,8 @@ def test_every_module_imports_without_jax():
 
 def port_sources() -> list[Path]:
     return list((ROOT / "sdk_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "profile_trace_torch.py"]
+        ROOT / "chip_smoke.py"] + [ROOT / "tools" / f"{m}.py"
+                                   for m in TOOLS[1:]]
 
 
 def test_sources_never_import_jax():
@@ -162,3 +168,17 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_multiproc_worker_fails_without_card(tmp_path):
+    """Asked for the card (no --cpu) where there is none, the worker exits
+    non-zero before any rendezvous and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "multiproc_worker_torch.py"),
+         str(tmp_path / "store"), "1", "0", "--case", "bucket"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert not [x for x in res.stdout.splitlines() if x.startswith("{")]
+    assert not (tmp_path / "store").exists()
