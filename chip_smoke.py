@@ -68,7 +68,21 @@ Phases (any failure exits non-zero, with no result line):
    the read coalescer, /update-row past the dense migration, /bloom,
    /list-keys, /meta, /modify, checkpoints of the compact and the dense
    index restored into new buckets that answer with the same bytes, /clear,
-   /destroy.
+   /destroy. On the dense index (8.59 GB), the dispatch check: a warm
+   16-batch's dispatch_queries_batched under
+   torch.cuda.set_sync_debug_mode("error") (no synchronizing call), its
+   host time beside the batch's device time, a CUDA event recorded right
+   after the dispatch not yet complete, then the fetch, the warm batch's
+   bytes, every response decoded. The dense checkpoint is kept for 7a.
+7a. load: tools/load_test_torch.py spawns the port's server on the card
+   (python -m sdk_tpu_torch.server.http, a process of its own) from that
+   checkpoint, warmed, with the service's 25 ms coalescing window; then
+   closed loops of 1, 4 and 16 clients and of 16 with the writer (flushes,
+   kernel H, racing the reads), LOAD_DURATION_S each, each the tool in a
+   process of its own; every read decode-verified; each run's summary
+   (reads/s, latency p50/p90/p99, coalesced batches, the clients' own
+   time) on a line with the card. Fails on an error, a run without reads,
+   or a 16-client run that never coalesced.
 7b. direct upload: the small direct-upload config (each request carries
    its public params, scan columns and GSW keys: no expansion) on the card
    against the CPU plain versions byte for byte; then the full 1 GiB bucket
@@ -112,7 +126,10 @@ Phases (any failure exits non-zero, with no result line):
    narrow form held against its plain version on the bucket's own a_2
    operands (every hint row, nq = 8 and 1), timed beside its bound,
    torch._int_mm over both planes stacked x 32 int8 columns, its blocks
-   an SM and ptxas report; the whole DB's level 1 beside torch._int_mm.
+   an SM and ptxas report; the whole DB's level 1 beside torch._int_mm;
+   K tiled's whole H1 and one H2 pair launch beside torch._int_mm at their
+   shapes (yardsticks beside the kernel's times from
+   tools/scan_bench_gpu.py --kernel dot).
 11. device times: A, A' and F at the shapes of 3, E on every round of
    a dense expansion at NQ = 1 and 16, the regev_to_gsw kernel and the
    chain it replaced at NQ = 1 and 16, K's tiled form on the H1 sample
@@ -134,7 +151,9 @@ Phases (any failure exits non-zero, with no result line):
    kernel M on every rank), equal to C over the whole index and to
    psum_mod_plain, M launched once a rank: two gloo ranks (the all_gather
    through the host; two processes share the one card), then one NCCL
-   rank (W = 1; NCCL takes one rank a card); their JSON lines.
+   rank (W = 1; NCCL takes one rank a card); each rank also times the
+   library's torch.stack(parts).sum(0) % q over the gathered parts; their
+   JSON lines.
 12. report: launches of every kernel on the main paths (5, 6, 6b, 7, 7b and
    10, each must be > 0 but E''s, D's and B's, which no path launches
    since E, G's out_words mode and the regev_to_gsw kernel; a service
@@ -157,6 +176,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2394,10 +2414,51 @@ def check_read_launches(per_read: dict, per_batch: dict) -> None:
         f"16-batch ({per_read})")
 
 
+def dispatch_check(srv, blobs: list, check) -> dict:
+    """The two-phase dispatch of a warm 16-batch on the bucket's engine:
+    dispatch_queries_batched under torch.cuda.set_sync_debug_mode("error")
+    (any synchronizing call raises), its host time beside the batch's
+    device time (CUDA events: one recorded before the dispatch, one just
+    after it, which must not have completed yet: the dispatch returned
+    while the card ran the batch), then the fetch: the same bytes as the
+    warm batch, each decoded by check(i, response)."""
+    eng = srv.engine
+    srv.flush()
+    reqs = [srv._parse_request(b) for b in blobs]
+    want = eng.dispatch_queries_batched(reqs)()        # warm
+    torch.cuda.synchronize()
+    start, queued = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fetch = eng.dispatch_queries_batched(reqs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_ms = (time.perf_counter() - t) * 1e3
+    queued.record()
+    busy = not queued.query()
+    got = fetch()
+    out = {"nq": len(blobs), "synchronizing_calls": 0,
+           "dispatch_host_ms": host_ms,
+           "batch_device_ms": start.elapsed_time(queued),
+           "device_busy_after_dispatch": busy,
+           "same_bytes_as_warm_batch": got == want}
+    for i, r in enumerate(got):
+        check(i, r)
+    if not (busy and got == want
+            and out["dispatch_host_ms"] < out["batch_device_ms"]):
+        raise AssertionError(f"the dispatch waited for the card: {out}")
+    return out
+
+
 def phase_service(params, sessions: Sessions, dev, launches: Launches,
-                  n_keys: int = 300, n_rows: int = 4200) -> dict:
+                  n_keys: int = 300, n_rows: int = 4200,
+                  keep_dense: str | None = None) -> dict:
     """The 1 GiB bucket behind its HTTP service on localhost, driven through
-    sdk_tpu_torch.clients only. Every step raises on a wrong answer."""
+    sdk_tpu_torch.clients only. Every step raises on a wrong answer. With
+    ``keep_dense`` the dense checkpoint is saved into that directory and
+    kept there (the load phase serves it)."""
     from sdk_tpu_torch.clients.api import API, ApiError
     from sdk_tpu_torch.clients.bloom import BloomFilter
     from sdk_tpu_torch.clients.bucket_service import BucketService
@@ -2562,11 +2623,14 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
         if meta["name"] != "smoke-bucket" or meta["global_version"] < 1:
             raise AssertionError(f"/meta after /modify: {meta}")
 
-        def checkpoint(label: str) -> dict:
-            """save_to_dir, restore into a new bucket, same bytes back."""
+        def checkpoint(label: str, keep: str | None = None) -> dict:
+            """save_to_dir, restore into a new bucket, same bytes back; the
+            checkpoint stays in ``keep`` when given."""
             probe = batch[:4]
             first = srv.private_read_blobs(probe)
-            with tempfile.TemporaryDirectory() as tmp:
+            with contextlib.ExitStack() as stack:
+                tmp = keep or stack.enter_context(
+                    tempfile.TemporaryDirectory())
                 _, save_s = timed_s(lambda: srv.save_to_dir(tmp))
                 size = dir_bytes(tmp)
                 other = SpiralKvServerTorch(params, key_storage_policy="full")
@@ -2636,7 +2700,18 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
             f"flush + a read in {update_s:.2f} s; dense: single read over "
             f"HTTP median {out['dense']['http_single_ms_median']:.2f} ms, 16 "
             f"readers {wall:.2f} ms")
-        out["checkpoint_dense"] = checkpoint("dense")
+        out["dispatch_check"] = dispatch_check(
+            srv, batch, lambda i, r: check_value(
+                sessions.clients[i // 4], r, batch_keys[i],
+                values[batch_keys[i]]))
+        log(f"[service] dispatch check, the dense 8.59 GB index: a warm "
+            f"16-batch's dispatch_queries_batched made no synchronizing call "
+            f"(set_sync_debug_mode error) and returned in "
+            f"{out['dispatch_check']['dispatch_host_ms']:.2f} ms of host time "
+            f"while the card still ran the batch "
+            f"({out['dispatch_check']['batch_device_ms']:.2f} ms); the fetch "
+            f"gave the warm batch's bytes, every response decoded")
+        out["checkpoint_dense"] = checkpoint("dense", keep_dense)
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
 
         # /clear: reads decode to absent, compact again, memory released
@@ -2671,6 +2746,89 @@ def phase_service(params, sessions: Sessions, dev, launches: Launches,
     del srv
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# the load phase's closed loops: (clients, with the writer), each
+# LOAD_DURATION_S long, against one spawned server
+LOAD_RUNS = ((1, False), (4, False), (16, False), (16, True))
+LOAD_DURATION_S = 10.0
+
+
+def phase_load(ckpt: str, card: str) -> dict:
+    """tools/load_test_torch.py on the 1 GiB bucket: the tool spawns the
+    port's server (python -m sdk_tpu_torch.server.http, on the card) from
+    the dense checkpoint of phase_service (the full 8.59 GB index), warmed,
+    with the service's coalescing window; then each of LOAD_RUNS is the tool
+    in a process of its own against that server (--endpoint), every read
+    decode-verified, the writer's flushes racing the reads in the last. The
+    server is stopped on every exit path. Fails if a run has an error or no
+    read, or if a 16-client run never coalesced: its own batches (the
+    difference of /metrics' cumulative read_coalescer counts across the
+    run) carry no more requests than there are batches, i.e. max_batch < 2
+    in the run."""
+    import urllib.request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tools = os.path.join(root, "tools")
+    sys.path.insert(0, tools)
+    import load_test_torch as tool
+
+    t = time.perf_counter()
+    proc, port = tool.spawn_server(BATCH_WINDOW_MS, cpu=False, warmup=True,
+                                   restore=ckpt, store=(15, 32768))
+    endpoint = f"http://localhost:{port}"
+    out = {"server_start_s": time.perf_counter() - t,
+           "batch_window_ms": BATCH_WINDOW_MS, "index": "dense, restored",
+           "duration_s": LOAD_DURATION_S, "runs": []}
+    log(f"[load] server on the card at {endpoint}: restored, warmed and "
+        f"listening in {out['server_start_s']:.1f} s")
+
+    def coalescer() -> dict:
+        with urllib.request.urlopen(endpoint + "/metrics", timeout=60) as r:
+            return json.load(r)["read_coalescer"]
+
+    try:
+        for clients, writer in LOAD_RUNS:
+            before = coalescer()
+            cmd = [sys.executable, os.path.join(tools, "load_test_torch.py"),
+                   "--endpoint", endpoint, "--clients", str(clients),
+                   "--duration", str(LOAD_DURATION_S)]
+            t = time.perf_counter()
+            res = subprocess.run(cmd + (["--writer"] if writer else []),
+                                 capture_output=True, text=True, cwd=root,
+                                 timeout=LOAD_DURATION_S + 300)
+            wall = time.perf_counter() - t
+            lines = [x for x in res.stdout.splitlines() if x.startswith("{")]
+            if res.returncode != 0 or len(lines) != 1:
+                raise AssertionError(f"load {clients} clients: rc "
+                                     f"{res.returncode}\n{res.stderr[-3000:]}")
+            summary = json.loads(lines[0])
+            after = summary["read_coalescer"]
+            batches = after["batches"] - before["batches"]
+            requests = after["requests"] - before["requests"]
+            run = dict(summary, writer=writer, tool_process_s=wall,
+                       run_batches=batches, run_requests=requests,
+                       run_mean_coalesced_batch=requests / batches
+                       if batches else None)
+            log("[load] " + json.dumps({"card": card, **run}))
+            if summary["errors"] or not summary["reads"]:
+                raise AssertionError(f"load {clients} clients: "
+                                     f"{summary['errors']} errors "
+                                     f"{summary['error_samples']}, "
+                                     f"{summary['reads']} reads")
+            if clients == 16 and requests <= batches:
+                raise AssertionError(f"16 clients never coalesced: "
+                                     f"{requests} requests in {batches} "
+                                     f"batches")
+            out["runs"].append(run)
+    finally:
+        tool.stop_server(proc)
+    log(f"[load] {card}: " + "; ".join(
+        f"{r['clients']} clients{' + writer' if r['writer'] else ''} "
+        f"{r['qps']:.1f} reads/s, p50 {r['latency_ms']['p50']:.1f} ms, p99 "
+        f"{r['latency_ms']['p99']:.1f} ms, batch {r['run_mean_coalesced_batch']:.2f}"
+        for r in out["runs"]))
     return out
 
 
@@ -3552,7 +3710,35 @@ def phase_checklist_full(dev, table: KernelTable, launches: Launches,
     db_whole = torch.as_strided(eng.db, (rows, stride), (stride, 1))
     k_row["level1_full_library_ms"] = cuda_ms(lambda: torch._int_mm(
         db_whole, torch.ones((stride, 8), dtype=torch.int8, device=dev)), 5)
+    # K tiled's whole H1 (one launch over the DB @ A1) and one H2 pair
+    # launch (digits @ A2) beside the library: torch._int_mm over the same
+    # int8 rows x the u32 operand's four byte planes (4n int8 columns), the
+    # faster of a row-major and a column-major second operand; for H2 both
+    # digit planes stacked (2n rows) over l, padded to 16. Yardsticks only:
+    # the port never calls them
+    n = eng.params.n
+
+    def int_mm_layouts(a: torch.Tensor) -> dict:
+        ones = torch.ones((a.shape[1], 4 * n), dtype=torch.int8, device=dev)
+        out = {"row_major": cuda_ms(lambda: torch._int_mm(a, ones), 3)}
+        ones = ones.t().contiguous().t()
+        out["col_major"] = cuda_ms(lambda: torch._int_mm(a, ones), 3)
+        return out
+
+    h1_lib = int_mm_layouts(db_whole)
     del db_whole
+    torch.cuda.empty_cache()
+    h2_lib = int_mm_layouts(torch.ones((2 * n, -(-eng.params.l // 16) * 16),
+                                       dtype=torch.int8, device=dev))
+    torch.cuda.empty_cache()
+    k_row.update(tiled_h1_full_library_ms=min(h1_lib.values()),
+                 tiled_h1_full_library_layouts_ms=h1_lib,
+                 tiled_h2_library_ms=min(h2_lib.values()),
+                 tiled_h2_library_layouts_ms=h2_lib)
+    log(f"[checklist] library yardsticks: the whole H1 as torch._int_mm "
+        f"({rows} x {stride} @ {stride} x {4 * n} int8) {h1_lib} ms; one H2 "
+        f"pair launch's ({2 * n} x {-(-eng.params.l // 16) * 16} @ ... x "
+        f"{4 * n}) {h2_lib} ms")
     # a_2, the narrow form, on the bucket's own operands: every row held
     # against the plain version (512-row bands), nq = 8 and 1
     h_rows = eng.h1_lo.shape[0]
@@ -3640,8 +3826,16 @@ def main() -> int:
     full, probe = phase_full(params, sessions, dev, table, launches)
     sharded = phase_sharded(params, sessions, dev, table, launches, probe)
     del probe
-    service = phase_service(params, sessions, dev, launches)
-    del sessions
+    ckpt = tempfile.mkdtemp(prefix="load_ckpt_")
+    try:
+        service = phase_service(params, sessions, dev, launches,
+                                keep_dense=ckpt)
+        del sessions
+        gc.collect()
+        torch.cuda.empty_cache()
+        load = phase_load(ckpt, card)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     direct = phase_direct(params, dev, launches)
     client_test = phase_client_test(dev)
     phase_doublepir_kernels(dev, table)
@@ -3665,7 +3859,7 @@ def main() -> int:
                                   "launches": launches.total,
                                   "lifecycle": lifecycle, "full": full,
                                   "sharded": sharded, "service": service,
-                                  "direct": direct,
+                                  "load": load, "direct": direct,
                                   "client_test": client_test,
                                   "checklist": checklist,
                                   "traces": traces,

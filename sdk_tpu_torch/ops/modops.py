@@ -44,12 +44,33 @@ def shoup_companion_arr(params: Params, w: np.ndarray) -> np.ndarray:
     return out.astype(np.uint32)
 
 
+def to_device(host: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on ``device``. To a CUDA card it goes through a pinned
+    buffer and a copy that does not make the host wait for the work queued
+    on the stream (a pageable one would); torch's pinned allocator keeps
+    the buffer until the copy has run. Elsewhere as ``.to`` does."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+_MODULI: dict = {}
+
+
 def moduli_column(params: Params, device, ndim_after: int = 1) -> torch.Tensor:
     """The CRT moduli as an int64 tensor shaped (crt, 1, ..., 1) with
     ``ndim_after`` trailing unit dims, for broadcasting against
-    (..., crt, *rest) tensors."""
-    return torch.tensor(params.moduli, dtype=torch.int64, device=device
-                        ).reshape((-1,) + (1,) * ndim_after)
+    (..., crt, *rest) tensors. Made once a device (an upload each call
+    would make the host wait for the card's queued work); callers never
+    write into it."""
+    key = (params.moduli, str(torch.device(device)), ndim_after)
+    q = _MODULI.get(key)
+    if q is None:
+        q = _MODULI[key] = torch.tensor(
+            params.moduli, dtype=torch.int64, device=device
+        ).reshape((-1,) + (1,) * ndim_after)
+    return q
 
 
 def reduce_channels(params: Params, raw: torch.Tensor) -> torch.Tensor:

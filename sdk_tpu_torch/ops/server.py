@@ -29,7 +29,7 @@ from ..telemetry import GLOBAL_TIMERS
 from ..convert import db_from_host_tensor
 from . import spiral as sj
 from .encode import ResponseEncodePlan
-from .modops import shoup_companion_arr, u32_bits
+from .modops import shoup_companion_arr, to_device, u32_bits
 from .shard import (Mesh, ShardedDb, ShardedSpiralScan, check_mesh,
                     fold_columns)
 
@@ -192,8 +192,8 @@ class SpiralServerTorch:
         nq = len(queries)
         columns = columns or nq
         crt, n = params.crt_count, params.poly_len
-        ct = torch.from_numpy(np.stack([q.ct for q in queries])
-                              .astype(np.int64)).to(self.device)
+        ct = to_device(torch.from_numpy(np.stack([q.ct for q in queries])
+                                        .astype(np.int64)), self.device)
         ct0 = sj.to_ntt(params, ct)                     # (NQ, 2, 1, crt, n)
         keys = sj.ExpansionKeys(params, pp_devs)
         dim0 = 1 << params.db_dim_1
@@ -352,18 +352,39 @@ class SpiralServerTorch:
         closure that copies the response words to the host (waiting for the
         queued work) and returns the response bytes.
 
+        On a card the dispatch makes no synchronizing call (the uploads go
+        through pinned buffers, the moduli are made once), so it returns
+        while the batch runs and the next batch's dispatch can overlap it;
+        only a batch of one under the CLIENT_TEST hook waits for its fold.
+
         The per-query key material is not stacked: kernel F takes the
         batch's folding keys, which each expansion makes anew, as one
-        stacked tensor, and kernel G reads each client's packing keys
-        through a table of pointers, so there is no stacked-key cache to
-        budget (the JAX engine's LRU, server_jax.py:183-195)."""
+        stacked tensor, and kernels E, regev_to_gsw and G read each
+        client's keys through tables of pointers, so there is no
+        stacked-key cache to budget (the JAX engine's LRU,
+        server_jax.py:183-195). The fetch holds those key tensors until the
+        batch has run, whatever /clear, an eviction or a new setup does to
+        the session dicts meanwhile."""
         self._require_db()
         n_real = len(requests)
-        words = self._dispatch([self._pp_dev(pp) for pp, _ in requests],
-                               [q for _, q in requests])
+        pps = [self._pp_dev(pp) for pp, _ in requests]
+        words = self._dispatch(pps, [q for _, q in requests])
+        held = _tensors(pps)
 
         def fetch():
             host = words.cpu().numpy()        # waits for the queued work
+            held.clear()
             return [self.encode_plan.to_bytes(host[i]) for i in range(n_real)]
 
         return fetch
+
+
+def _tensors(obj) -> list:
+    """Every tensor in nested dicts, lists and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = obj.values()
+    elif not isinstance(obj, (list, tuple)):
+        return []
+    return [t for x in obj for t in _tensors(x)]

@@ -47,7 +47,8 @@ from ..params import Params
 
 from .. import _build
 from .modops import (add_mod, crt_compose, moduli_column, mul_mod, neg_mod_Q,
-                     reduce_channels, shoup_companion_arr, u32_bits)
+                     reduce_channels, shoup_companion_arr, to_device,
+                     u32_bits)
 from .ntt import (core_pad, ntt_forward, ntt_forward_plain, ntt_inverse,
                   ntt_inverse_plain)
 from .ntt import tables as ntt_tables
@@ -892,11 +893,12 @@ class ExpansionKeys:
         return row
 
     def table(self, device) -> torch.Tensor:
-        """int64 (rounds + 1, NQ, 2, 2) pointer table on ``device``."""
+        """int64 (rounds + 1, NQ, 2, 2) pointer table on ``device``,
+        uploaded without waiting for the card (modops.to_device)."""
         if self._table is None:
             rows = np.stack([self._pointer_row(self.params, pp)
                              for pp in self._pp_devs], axis=1)
-            self._table = torch.from_numpy(rows).to(device)
+            self._table = to_device(torch.from_numpy(rows), device)
         return self._table
 
 
@@ -1482,8 +1484,8 @@ def _pack_launch(params: Params, v_ct: torch.Tensor, v_packings: list,
     tb = ntt_tables(params, v_ct.device)
     _build.require_cuda(v_ct, tb, *[k for ks in keys for k in ks])
     tl = pack_tiling(params, nq, _sm_count(v_ct.device), cluster)
-    table = torch.tensor([k.data_ptr() for ks in keys for k in ks],
-                         dtype=torch.int64).to(v_ct.device)
+    table = to_device(torch.tensor([k.data_ptr() for ks in keys for k in ks],
+                                   dtype=torch.int64), v_ct.device)
     shape, dtype = {"ntt": ((nq, inst, n + 1, n, 2, z), torch.int32),
                     "raw": ((nq, inst, n + 1, n, z), torch.int64),
                     "words": ((nq, num_words), torch.int32)}[mode]

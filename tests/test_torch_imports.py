@@ -24,7 +24,8 @@ PARAMS = get_fast_expansion_testing_params()
 
 
 # the port's tools, imported as modules from tools/
-TOOLS = ["chip_smoke", "profile_trace_torch", "multiproc_worker_torch"]
+TOOLS = ["chip_smoke", "profile_trace_torch", "multiproc_worker_torch",
+         "load_test_torch", "dispatch_sync_gpu"]
 
 
 def port_modules() -> list[str]:

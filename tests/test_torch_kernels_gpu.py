@@ -787,6 +787,50 @@ def test_batched_engine_on_card_equals_cpu(cuda):
         assert sessions[k % 2][0].decode_response(responses[0][k])[:row_len] == row
 
 
+@pytest.mark.parametrize("nq", [1, 4])
+def test_dispatch_makes_no_synchronizing_call(cuda, nq):
+    """A warm dispatch_queries_batched over a dense index (the expansion,
+    the scan, the fold and G) enqueues the batch without one synchronizing
+    call (torch.cuda.set_sync_debug_mode("error") raises at any), so the
+    read coalescer's next window can dispatch while this batch runs; its
+    responses equal the CPU port's byte for byte and decode."""
+    from sdk_tpu_torch.ops.server import pp_to_device
+
+    params = PARAMS
+    params_h = params_j.params_from_json(json.dumps(params_to_json_obj(params)))
+    _, db = server_host.generate_random_db_and_get_item(params_h, 9)
+    sessions = [_session(params, 0xA1), _session(params, 0xB1)]
+    queries = [sessions[k % 2][0].generate_query(
+        9, noise_rng=ChaCha20Rng(bytes([0xC0 + k]) * 32),
+        query_seed=bytes([0xD0 + k]) * 32) for k in range(nq)]
+    responses = []
+    for device in (cuda, "cpu"):
+        srv = SpiralServerTorch(params, device)
+        srv.set_db_host_tensor(db)
+        pps = [pp_to_device(params, pp, srv.device) for _, pp in sessions]
+        batch = [(pps[k % 2], q) for k, q in enumerate(queries)]
+        if device is cuda:
+            srv.dispatch_queries_batched(batch)()      # first use: the build
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fetch = srv.dispatch_queries_batched(batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            fetch = srv.dispatch_queries_batched(batch)
+        responses.append(fetch())
+    assert responses[0] == responses[1]
+    client, pp = sessions[0]
+    oracle = server_host.process_query(
+        params_h,
+        client_j.PublicParameters.deserialize(params_h, pp.serialize(params)),
+        client_j.Query.deserialize(params_h, queries[0].serialize(params)), db)
+    want = client.decode_response(oracle)
+    assert [sessions[k % 2][0].decode_response(r)
+            for k, r in enumerate(responses[0])] == [want] * nq
+
+
 DIRECT_SMALL = params_from_json(
     '{"direct_upload": 1, "n": 2, "nu_1": 4, "nu_2": 2, "p": 256,'
     ' "q2_bits": 20, "t_gsw": 8, "t_conv": 4, "t_exp_left": 8,'

@@ -38,8 +38,10 @@ psum_mod_plain on the gathered parts; rank 0 also remakes every other
 rank's shards and holds it against kernel C over the whole index. Rank 0
 prints the shapes, C's, the all_gather's and M's times by rank (with
 gloo also the all_gather of the same parts from host memory: the
-collective without the copies), M's launches by rank, the memory peaks
-and the card.
+collective without the copies), M's launches by rank, the time of the
+library's one-expression sum over the gathered parts (torch.stack(parts)
+.sum(0) % q, a yardstick the port never calls), the memory peaks and the
+card.
 """
 
 from __future__ import annotations
@@ -216,9 +218,21 @@ def run_bucket(world: int, rank: int, dev: torch.device, group,
     plain = shard.psum_mod_plain(gathered, params.moduli)
     m2 = torch.cuda.Event(enable_timing=True)
     m2.record()
+    # the library yardstick (never called by the port): one PyTorch
+    # expression of the same sum over the gathered parts
+    qcol = torch.tensor(params.moduli, dtype=torch.int64, device=dev
+                        ).reshape((2,) + (1,) * (gathered[0].ndim - 1))
+    torch.stack(gathered).sum(0) % qcol
+    m3 = torch.cuda.Event(enable_timing=True)
+    m3.record()
+    for _ in range(M_REPS):
+        torch.stack(gathered).sum(0) % qcol
+    m4 = torch.cuda.Event(enable_timing=True)
+    m4.record()
     torch.cuda.synchronize(dev)
     stats.update(all_gather_ms=gather_ms, m_ms=m0.elapsed_time(m1) / M_REPS,
                  plain_ms=m1.elapsed_time(m2),
+                 library_ms=m3.elapsed_time(m4) / M_REPS,
                  m_vec4=shard.psum_mod_vec4(gathered, params.moduli),
                  plain_err=max_err(got, plain),
                  digest=hashlib.sha256(got.cpu().numpy().tobytes())
@@ -263,6 +277,7 @@ def run_bucket(world: int, rank: int, dev: torch.device, group,
             "m_ms": [s["m_ms"] for s in every],
             "m_launches": [s["m_launches"] for s in every],
             "plain_ms": [s["plain_ms"] for s in every],
+            "library_ms": [s["library_ms"] for s in every],
             "m_vec4": [s["m_vec4"] for s in every],
             "max_abs_err_plain": [s["plain_err"] for s in every],
             "max_abs_err_whole_index": whole_err,
