@@ -1,0 +1,18 @@
+"""Stages (ops/server.py _dispatch): stream milliseconds of the expansion
+stage (``device.expand``: the batch's upload, kernel E's rounds and the
+regev_to_gsw kernel, between two CUDA events on the engine's stream) per
+query of the counted dispatches (pirbench/harness/program_spans.py).
+Nothing to read without the events (a program without them, or no card)."""
+
+from pirbench.harness import program_spans
+
+STAGE = "device.expand"
+
+
+def read(view):
+    c = program_spans.counted(view)
+    if c is None:
+        return None
+    recs = [r for r in c.records if r.name == STAGE]
+    nq = sum(r.count for r in recs)
+    return sum(r.t1_ns - r.t0_ns for r in recs) / 1e6 / nq if nq else None

@@ -17,6 +17,8 @@ lib/spiral-rs/src/server.rs:650-741.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -116,6 +118,8 @@ class SpiralServerTorch:
         self.encode_plan = ResponseEncodePlan(params, self.device)
         self.db: torch.Tensor | sj.CompactDb | None = None
         self._splan: sj.SparseExpansionPlan | None = None
+        # resolved stage events, recorded again by later dispatches
+        self._free_events: list = []
 
     # -- state --
 
@@ -305,7 +309,8 @@ class SpiralServerTorch:
         return sj.pack_encode(self.params, folded, v_packings,
                               self.encode_plan)
 
-    def _dispatch(self, pps: list, queries: list) -> torch.Tensor:
+    def _dispatch(self, pps: list, queries: list,
+                  marks: list | None = None) -> torch.Tensor:
         """Enqueue a batch: one batched expansion, ONE scan with R = 2*NQ
         columns (column 2*i + r is row r of query i), one fold and one pack
         + encode for the whole batch. NQ is padded to a power of
@@ -318,21 +323,53 @@ class SpiralServerTorch:
         CLIENT_TEST hook is set, a batch of one waits for its fold and
         checks query 0's instance-0 / trial-0 folded ct before G is
         launched (server_jax.py:552-556); larger batches are not checked
-        (server_jax.py:654). Returns (NQ, words) int32."""
+        (server_jax.py:654). With ``marks`` (a list, on a card) a timing
+        event is recorded at each stage boundary (see _marker).
+        Returns (NQ, words) int32."""
         n_real = len(queries)
         pad_n = 1 << (n_real - 1).bit_length()
+        mark = self._marker(marks)
+        mark(None)
         q_all, v_foldings, v_neg = self.query_to_device(pps, queries, pad_n)
+        mark("device.expand")
         if self._sharded is not None:
             folded = self._sharded.scan_fold(self.db, q_all, n_real,
                                              v_foldings, v_neg)
+            mark("device.scan_fold")
         else:
             inter = sj.firstdim_multiply(self.params, self.db, q_all)
+            mark("device.scan")
             inter = inter.reshape(inter.shape[:-1] + (pad_n, 2))[..., :n_real, :]
             folded = fold_columns(self.params, inter, v_foldings, v_neg)
+            mark("device.fold")
         if n_real == 1 and client_test_active():
             ct = folded[0, 0, 0].cpu().numpy().astype(np.uint64)
             check_folded_ct(self.params, ct)
-        return self._pack_encode(folded, [pp["v_packing"] for pp in pps])
+        words = self._pack_encode(folded, [pp["v_packing"] for pp in pps])
+        mark("device.pack")
+        return words
+
+    def _marker(self, marks: list | None):
+        """The function that marks a stage boundary of one dispatch: it
+        records a timing event, taken from the engine's free events or
+        made, on the dispatch's stream (looked up once: a lookup costs
+        more host time than a record) and appends (the stage it closes, or
+        None for the first, event) to ``marks``; without ``marks`` it does
+        nothing."""
+        if marks is None:
+            return _no_mark
+        stream = torch.cuda.current_stream(self.device)
+        free = self._free_events
+
+        def mark(stage: str | None) -> None:
+            try:
+                ev = free.pop()
+            except IndexError:
+                ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            marks.append((stage, ev))
+
+        return mark
 
     # -- host orchestration --
 
@@ -341,10 +378,7 @@ class SpiralServerTorch:
             raise RuntimeError("no DB installed")
 
     def process_query(self, pp, query: Query) -> bytes:
-        self._require_db()
-        with GLOBAL_TIMERS.stage("query_fused"):
-            words = self._dispatch([self._pp_dev(pp)], [query])
-            return self.encode_plan.to_bytes(words[0])
+        return self.dispatch_queries_batched([(pp, query)])()[0]
 
     def dispatch_queries_batched(self, requests: list):
         """Two-phase batched serving: enqueue the whole batch on the
@@ -364,19 +398,53 @@ class SpiralServerTorch:
         stacked-key cache to budget (the JAX engine's LRU,
         server_jax.py:183-195). The fetch holds those key tensors until the
         batch has run, whatever /clear, an eviction or a new setup does to
-        the session dicts meanwhile."""
+        the session dicts meanwhile.
+
+        Traced (telemetry): the enqueue is the span ``engine.dispatch``
+        (count: the batch's queries; its trace id is the dispatch's), the
+        fetch's copy ``engine.fetch`` and the bytes ``engine.to_bytes``. On
+        a card the stage events are resolved after the copy has returned,
+        when they are complete, so resolving them waits for nothing: one
+        ``device.*`` record a stage, whose duration is the stage's stream
+        time (its placement is made up: laid back to back with the others
+        so that the last ends when they are resolved). The resolved events
+        go back to the engine's free events."""
         self._require_db()
         n_real = len(requests)
-        pps = [self._pp_dev(pp) for pp, _ in requests]
-        words = self._dispatch(pps, [q for _, q in requests])
-        held = _tensors(pps)
+        marks = [] if self.device.type == "cuda" else None
+        with GLOBAL_TIMERS.span("engine.dispatch", n_real) as span:
+            pps = [self._pp_dev(pp) for pp, _ in requests]
+            words = self._dispatch(pps, [q for _, q in requests], marks)
+            held = _tensors(pps)
 
         def fetch():
-            host = words.cpu().numpy()        # waits for the queued work
+            with GLOBAL_TIMERS.span("engine.fetch", n_real, span.trace):
+                host = words.cpu().numpy()    # waits for the queued work
             held.clear()
-            return [self.encode_plan.to_bytes(host[i]) for i in range(n_real)]
+            if marks:
+                _record_stages(marks, span)
+                self._free_events.extend(ev for _, ev in marks)
+            with GLOBAL_TIMERS.span("engine.to_bytes", n_real, span.trace):
+                return [self.encode_plan.to_bytes(host[i])
+                        for i in range(n_real)]
 
         return fetch
+
+
+def _no_mark(stage: str | None) -> None:
+    pass
+
+
+def _record_stages(marks: list, span) -> None:
+    """The stage events of a finished dispatch -> its device.* records:
+    each stage's stream time, the records laid back to back ending now."""
+    stages = [(stage, round(prev.elapsed_time(ev) * 1e6))
+              for (_, prev), (stage, ev) in zip(marks, marks[1:])]
+    t = time.monotonic_ns() - sum(ns for _, ns in stages)
+    for stage, ns in stages:
+        GLOBAL_TIMERS.add(stage, t, t + ns, span.span, span.trace,
+                          span.count)
+        t += ns
 
 
 def _tensors(obj) -> list:

@@ -4,6 +4,10 @@
 Routes:
     GET  /              hello
     GET  /meta          bucket metadata incl. pir_scheme params + version
+    GET  /metrics       stages: count, total, mean and last us of each span
+                        of the served path (sdk_tpu_torch.telemetry);
+                        read_coalescer: batches, requests, max_batch;
+                        version, num_rows_populated
     POST /setup         store client public params, return {"uuid": ...}
     POST /write         JSON {key: base64 value | null}
     POST /update-row    raw row chunks (u32 len BE | u32 idx BE | bytes)*
@@ -53,6 +57,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..ops.shard import mesh_from_cli
 from ..params import params_from_json
+from ..telemetry import GLOBAL_TIMERS
 from .kv_server import SpiralKvServerTorch
 
 
@@ -70,6 +75,12 @@ class ReadCoalescer:
     is released before window N's dispatch, and N's blocking fetch runs
     outside every lock, so N+1's dispatch overlaps N's device run +
     response transfer (see kv_server.dispatch_read_blobs).
+
+    Traced (telemetry): each window's leader opens a trace for its
+    dispatch; its sleep is the span ``coalescer.window`` and its work on
+    the batch after it ``coalescer.batch`` (count: the requests), and a
+    follower's wait ``coalescer.wait``, all three in the dispatch's trace,
+    which links each request to the dispatch that served it.
     """
 
     def __init__(self, srv: SpiralKvServerTorch, window_s: float):
@@ -79,6 +90,7 @@ class ReadCoalescer:
         self._pending: list[dict] = []
         self._leader_active = False
         self.stats = {"batches": 0, "requests": 0, "max_batch": 0}
+        self._trace = 0
 
     def read_blobs(self, blobs: list[bytes]) -> list[bytes]:
         if self.window_s <= 0:
@@ -90,13 +102,17 @@ class ReadCoalescer:
             is_leader = not self._leader_active
             if is_leader:
                 self._leader_active = True
+                self._trace = GLOBAL_TIMERS.new_trace()
+            trace = self._trace
         if not is_leader:
-            entry["ev"].wait()
+            with GLOBAL_TIMERS.span("coalescer.wait", trace=trace):
+                entry["ev"].wait()
             if entry["exc"] is not None:
                 raise entry["exc"]
             return entry["res"]
 
-        time.sleep(self.window_s)
+        with GLOBAL_TIMERS.span("coalescer.window", trace=trace):
+            time.sleep(self.window_s)
         with self._lock:
             batch = self._pending
             self._pending = []
@@ -104,6 +120,15 @@ class ReadCoalescer:
             self.stats["batches"] += 1
             self.stats["requests"] += len(batch)
             self.stats["max_batch"] = max(self.stats["max_batch"], len(batch))
+        with GLOBAL_TIMERS.span("coalescer.batch", len(batch), trace):
+            self._run_batch(batch, entry)
+        if entry["exc"] is not None:
+            raise entry["exc"]
+        return entry["res"]
+
+    def _run_batch(self, batch: list[dict], entry: dict) -> None:
+        """The leader's dispatch of a window's batch: each entry gets its
+        results or its exception, and every follower is woken."""
         srv = self.srv
         try:
             # dispatch under the lock (a concurrent flush writes the index
@@ -111,12 +136,12 @@ class ReadCoalescer:
             # batch), but BLOCK on the device transfer outside it so writes
             # and other reads proceed while the device crunches the batch
             fetch = None
-            with srv.lock:
+            with srv._read_lock():
                 srv._flush()
                 parsed, slots = [], []
                 for e in batch:
                     try:
-                        reqs = [srv._parse_request(b) for b in e["blobs"]]
+                        reqs = srv._parse_requests(e["blobs"])
                     except Exception as ex:  # noqa: BLE001 — per-request
                         e["exc"] = ex
                         continue
@@ -146,9 +171,6 @@ class ReadCoalescer:
             for e in batch:
                 if e is not entry:
                     e["ev"].set()
-        if entry["exc"] is not None:
-            raise entry["exc"]
-        return entry["res"]
 
     def read_body(self, body: bytes) -> bytes:
         import base64
@@ -298,6 +320,14 @@ def make_routes_handler(iface):
         def do_POST(self):
             path, _, qs = self.path.partition("?")
             path = path.rstrip("/")
+            if path.endswith("/private-read"):
+                # one request, from its body read to its response written
+                with GLOBAL_TIMERS.span("http.private_read", 1):
+                    self._post(path, qs)
+            else:
+                self._post(path, qs)
+
+        def _post(self, path: str, qs: str):
             if iface.destroyed:
                 self._send(404, b'{"error": "bucket destroyed"}')
                 return

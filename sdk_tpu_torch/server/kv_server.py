@@ -15,6 +15,7 @@ mesh's devices from the start, as the JAX bucket does (kv_server.py:92-97).
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import logging
 import os
@@ -218,32 +219,39 @@ class SpiralKvServerTorch:
     def _flush(self) -> None:
         """kv_server.py:225-265, step for step: decide the migration on the
         populated count (pending rows included) before the pending rows are
-        written, write them, then resolve the sparse-expansion set."""
-        params = self.params
-        if (isinstance(self.engine.db, CompactDb)
-                and not self._migration_refused
-                and len(self._populated_items)
-                > self.dense_migrate_fill * params.num_items()):
-            try:
-                self._check_capacity()
-            except BucketCapacityError as e:
-                # the compact index serves any fill, so a bucket that cannot
-                # afford the dense one stays compact and keeps serving: the
-                # flush runs on the read path, which must not raise
-                logging.getLogger(__name__).warning(
-                    "dense migration refused; serving stays compact: %s", e)
-                self._migration_refused = True
-            else:
-                self.engine.set_db(compact_to_dense(
-                    params, self.engine.db, self._updates.slots.bin_count))
-                self._updates.slots.clear()
-        self.engine.db = self._updates.flush(self.engine.db)
-        if self._pop_dirty:
-            dim0 = 1 << params.db_dim_1
-            dim0_set = {i >> params.db_dim_2 for i in self._populated_items}
-            use = 0 < len(dim0_set) <= int(dim0 * self.sparse_expansion_max_fill)
-            self.engine.set_populated_dim0(dim0_set if use else None)
-            self._pop_dirty = False
+        written, write them, then resolve the sparse-expansion set. Traced
+        as the span ``bucket.flush`` (count: the pending rows)."""
+        with GLOBAL_TIMERS.span("bucket.flush",
+                                len(self._updates.pending_raw)):
+            params = self.params
+            if (isinstance(self.engine.db, CompactDb)
+                    and not self._migration_refused
+                    and len(self._populated_items)
+                    > self.dense_migrate_fill * params.num_items()):
+                try:
+                    self._check_capacity()
+                except BucketCapacityError as e:
+                    # the compact index serves any fill, so a bucket that
+                    # cannot afford the dense one stays compact and keeps
+                    # serving: the flush runs on the read path, which must
+                    # not raise
+                    logging.getLogger(__name__).warning(
+                        "dense migration refused; serving stays compact: %s",
+                        e)
+                    self._migration_refused = True
+                else:
+                    self.engine.set_db(compact_to_dense(
+                        params, self.engine.db, self._updates.slots.bin_count))
+                    self._updates.slots.clear()
+            self.engine.db = self._updates.flush(self.engine.db)
+            if self._pop_dirty:
+                dim0 = 1 << params.db_dim_1
+                dim0_set = {i >> params.db_dim_2
+                            for i in self._populated_items}
+                use = 0 < len(dim0_set) <= int(
+                    dim0 * self.sparse_expansion_max_fill)
+                self.engine.set_populated_dim0(dim0_set if use else None)
+                self._pop_dirty = False
 
     # --- setup / read ---
 
@@ -287,10 +295,27 @@ class SpiralKvServerTorch:
             pp_dev = pp_to_device(params, pp, self.device)
         return pp_dev, Query.deserialize(params, request_bytes[head:])
 
+    def _parse_requests(self, blobs: list[bytes]) -> list:
+        """_parse_request of each blob, traced as the span ``bucket.parse``
+        (count: the blobs)."""
+        with GLOBAL_TIMERS.span("bucket.parse", len(blobs)):
+            return [self._parse_request(b) for b in blobs]
+
+    @contextlib.contextmanager
+    def _read_lock(self):
+        """The bucket's lock on the read path; the wait for it is the span
+        ``bucket.lock_wait``."""
+        with GLOBAL_TIMERS.span("bucket.lock_wait"):
+            self.lock.acquire()
+        try:
+            yield
+        finally:
+            self.lock.release()
+
     def private_read_one(self, request_bytes: bytes) -> bytes:
-        with self.lock:
+        with self._read_lock():
             self._flush()
-            pp_dev, query = self._parse_request(request_bytes)
+            [(pp_dev, query)] = self._parse_requests([request_bytes])
             return self.engine.process_query(pp_dev, query)
 
     def private_read_blobs(self, blobs: list[bytes]) -> list[bytes]:
@@ -302,10 +327,10 @@ class SpiralKvServerTorch:
         and return a zero-arg fetch closure, which callers may run outside
         the lock. A flush between a dispatch and its fetch is safe: it is
         enqueued on the same stream, after the batch's scan."""
-        with self.lock:
+        with self._read_lock():
             self._flush()
-            reqs = [self._parse_request(b) for b in blobs]
-            return self.engine.dispatch_queries_batched(reqs)
+            return self.engine.dispatch_queries_batched(
+                self._parse_requests(blobs))
 
     def private_read(self, body: bytes) -> bytes:
         """JSON list of base64 queries -> JSON list of base64 responses
