@@ -49,7 +49,9 @@ Phases (any failure exits non-zero, with no result line):
    flush stays compact, its second migrates; an 8.59 GB dense index), three
    keys written, read through private_read and one 16-query batch; C's
    row: R = 2 and 32 on a z-slice and the whole index, share of bound,
-   its tilings and the build's registers and spills (-Xptxas -v); the
+   its tilings and the build's registers and spills (-Xptxas -v); R = 128
+   in C's resident form (row scan_resident), and a 48-query dispatch
+   decoded, whose scan is one resident launch; the
    expansion's hand launches for a read and for a 16-batch (equal,
    EXPANSION_LAUNCHES: one A, one E a round and one regev_to_gsw for the
    whole batch); the stage split of a single read and a 16-query batch.
@@ -1521,22 +1523,26 @@ def check_compact_scan(params, db, gen, table: KernelTable,
     return {"row": row, "extra": extra}
 
 
-def check_dense_scan(params, db, gen, table: KernelTable, label: str) -> dict:
+def check_dense_scan(params, db, gen, table: KernelTable, label: str,
+                     columns: tuple = (2, 32)) -> dict:
     """Kernel C against its plain version on a z-slice of a dense index and
-    on the whole index; returns the z-slice row and the whole-index times."""
+    on the whole index at each R of ``columns`` (in its resident form,
+    table row scan_resident, above 64); returns the z-slice rows of R = 2
+    and of the widest R and the whole-index times."""
     from sdk_tpu_torch.ops import spiral as sj
 
     zs = 64
     db_slice = db[:, :zs].contiguous()
     index_bytes = nbytes(db)
-    extra, row = {}, {}
-    for R in (2, 32):
+    extra, row, wide = {}, {}, {}
+    for R in columns:
+        name = "scan_resident" if R > 64 else "scan"
         q_full = query_cols(params, gen, params.poly_len, R, db.device)
         q_slice = q_full[:, :zs].contiguous()
         got = sj.firstdim_multiply(params, db_slice, q_slice)
-        table.check("scan", f"R={R} z-slice of the {label}", max_abs_err(
+        table.check(name, f"R={R} z-slice of the {label}", max_abs_err(
             got, sj.firstdim_multiply_plain(params, db_slice, q_slice)))
-        table.check("scan", f"R={R} {label}", max_abs_err(
+        table.check(name, f"R={R} {label}", max_abs_err(
             sj.firstdim_multiply(params, db, q_full)[:, :zs], got))
         full_ms = cuda_ms(lambda: sj.firstdim_multiply(params, db, q_full), 5)
         b = bound(index_bytes + nbytes(q_full) + 4 * got.numel()
@@ -1557,11 +1563,14 @@ def check_dense_scan(params, db, gen, table: KernelTable, label: str) -> dict:
         if R == 2:
             row = dict(ms=extra["ms_R2"], plain_ms=extra["plain_ms_R2"],
                        bnd=zb, library_ms=int_mm_ms(db_slice))
+        if R == max(columns):
+            wide = dict(R=R, ms=extra[f"ms_R{R}"],
+                        plain_ms=extra[f"plain_ms_R{R}"], bnd=zb)
         del q_full, q_slice, got
     extra["library_ms_R32"] = int_mm_ms(db_slice, 32)
     extra["full_index_library_ms_R2"] = int_mm_ms(db, 8)
     extra["full_index_library_ms_R32"] = int_mm_ms(db, 32)
-    return {"row": row, "extra": extra}
+    return {"row": row, "wide": wide, "extra": extra}
 
 
 def check_expand_round(params, splan, gen, dev, table: KernelTable) -> None:
@@ -1912,11 +1921,12 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     write_values(srv, values)
     srv.flush()
 
-    c = check_dense_scan(params, srv.engine.db, gen, table, "full index")
+    c = check_dense_scan(params, srv.engine.db, gen, table, "full index",
+                         (2, 32, 128))
     db = srv.engine.db
     M = int(np.prod(db.shape[4:7]))
     tilings = {f"R{R}": sj.scan_tiling(R, M, db.shape[1], db.shape[3])._asdict()
-               for R in (2, 32)}
+               for R in (2, 32, 128)}
     table.timed("scan", "sdk_tpu_torch/csrc/scan.cu",
                 "sdk_tpu/ops/spiral_jax.py:430",
                 f"z-slice 64 of {params.poly_len} of the filled index, R=2 "
@@ -1934,6 +1944,16 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
         f"({c['extra']['full_index_share_of_bound_R32']:.0%} of its bound; "
         f"torch._int_mm x 32 columns "
         f"{c['extra']['full_index_library_ms_R32']} ms)")
+    w = c["wide"]
+    table.timed("scan_resident", "sdk_tpu_torch/csrc/scan.cu",
+                "sdk_tpu/ops/spiral_jax.py:430",
+                f"z-slice 64 of {params.poly_len} of the filled index, "
+                f"R={w['R']} (a 48-query dispatch's 64 padded queries); the "
+                f"whole index in the scan row's *_R{w['R']}",
+                w["ms"], w["plain_ms"], w["bnd"], None)
+    wide_ms = c["extra"][f"full_index_ms_R{w['R']}"]
+    log(f"[full] scan's resident form equals its plain version on the "
+        f"filled index (R={w['R']}); whole index {wide_ms:.4f} ms")
     del c, db
 
     uids = sessions.setup(srv)
@@ -1945,6 +1965,21 @@ def phase_full(params, sessions: Sessions, dev, table: KernelTable,
     log(f"[full] 5 single reads through private_read and 2 x 16-query "
         f"batches decoded; single median {reads['single_read_ms_median']:.2f} "
         f"ms, batch {reads['batch16_ms_median']:.2f} ms")
+    # the benchmark's dispatch: 48 queries (6 requests of 8 rows), padded to
+    # 64, a scan of R = 128 columns in the resident form
+    wide = [sessions.blob(uids, 1 + i % 4, KEYS[i % 3], 300 + i)
+            for i in range(48)]
+    resps, wide_counts = launches.run(
+        lambda: srv.dispatch_read_blobs(wide)())
+    for i, resp in enumerate(resps):
+        check_value(sessions.clients[1 + i % 4], resp, KEYS[i % 3],
+                    values[KEYS[i % 3]])
+    if wide_counts.get("scan_resident") != 1 or wide_counts.get("scan"):
+        raise AssertionError(f"a 48-query dispatch: launches {wide_counts}, "
+                             f"want one scan_resident and no scan")
+    out["launches_48"] = wide_counts
+    log(f"[full] a 48-query dispatch decoded; its scan in the resident form "
+        f"({wide_counts['scan_resident']} launch)")
     probe = {"uids": uids, "single_blob": sessions.blob(uids, 0, KEYS[0], 250),
              "batch_blobs": [sessions.blob(uids, 1 + i // 4, KEYS[i % 3],
                                            260 + i) for i in range(16)]}

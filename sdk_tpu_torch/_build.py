@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Kernel launches by kernel name, counted where each wrapper launches.
 LAUNCHES: dict[str, int] = {"ntt_forward": 0, "ntt_inverse": 0,
-                            "matmul_mod": 0, "scan": 0, "encode": 0,
+                            "matmul_mod": 0, "scan": 0, "scan_resident": 0,
+                            "encode": 0,
                             "scan_compact": 0, "expand_round": 0,
                             "dp_dot_i8": 0, "dp_matmul_u32": 0,
                             "fold_round": 0, "pack": 0, "ingest": 0,
@@ -54,6 +55,8 @@ _SIGNATURES = {
                        (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _U, _U, _P)),
     "sdk_scan": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _U, _U, _P)),
+    "sdk_scan_resident": ("scan", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _U, _U, _P, _P)),
     "sdk_scan_compact": ("scan_compact", (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                           _U, _U, _P, _P)),

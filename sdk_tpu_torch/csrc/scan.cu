@@ -50,10 +50,27 @@
 // ntw tiles of the block and one m16 tile at a time; the DB words of the
 // next two k32 steps are loaded (predicated to zero past JW and M) while the
 // MMAs of the current ones run, also across the step from one m16 tile to
-// the next. When the query limbs of all of JW do not fit in shared memory,
-// the block refills them in chunks of kc steps. No wgmma, TMA or cp.async
-// ring yet.
-
+// the next. No wgmma, TMA or cp.async ring yet.
+//
+// Two forms. scan_kernel, for narrow batches, streams 1-4 tiles a warp
+// with up to two blocks an SM; where the query limbs of its columns over
+// all of JW do not fit in shared memory, it refills them in chunks of kc
+// steps for every m16 tile. Above 64 columns at the 1 GiB bucket's JW = 128
+// that refill is the cost: at R = 128 a block holds 8 of the 16 steps, so
+// each of its 64 m16 tiles packs the query twice (strided loads and limb
+// splits by 4 warps between two barriers), ~70 GB of query loads and ~4 G
+// packed items a scan. scan_resident_kernel holds the query limbs of its
+// columns over all of JW in shared memory, packed once a block (128 KB at
+// 64 columns and JW = 128), and its 8 warps walk every m16 tile of its
+// rows against them. The R columns split into blocks of 64 (or 32); the
+// blocks of one (channel, z) and range of rows are neighbours in the grid,
+// so they run side by side and share the index words through L2 (a thread
+// block cluster around them measured no faster). Its epilogue reduces with
+// host constants (scan_common::recombine) where scan_kernel divides in 64
+// bits (recombine_store), which cost a third of the resident form's time.
+// On an H100 80GB HBM3 at 700 W, the whole index at R = 128: 183.8 ms in
+// scan_kernel, 13.0 ms in scan_resident_kernel (tools/scan_bench_gpu.py).
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -61,12 +78,14 @@
 
 namespace {
 
+using scan_common::kEpi;
 using scan_common::kLimbs;
 using scan_common::kWeights;
 
 constexpr int kStepWords = 8;   // jw words of one k32 step (32 columns j)
 constexpr int kSteps = 2;       // k32 steps of an iteration
 constexpr int kMaxThreads = 256;
+constexpr int kResNtw = 4;      // tiles of a warp in the resident form
 
 struct Tiling {
   int Z, M, JW, R;
@@ -257,6 +276,150 @@ scan_kernel(const int32_t* __restrict__ db, const uint32_t* __restrict__ query,
   }
 }
 
+// The epilogue constants of both channels (scan_common::kEpi each).
+struct Epilogue {
+  uint32_t w[2][kEpi];
+};
+
+// The resident form: scan_kernel's walk at ntw = 4 with the query limbs of
+// all of JW (p.kc steps) packed once, before it. The grid is (ncb * bx, Z,
+// 2), block x = bx index * ncb + column block, so neighbouring blocks share
+// their (channel, z) and rows. A warp without columns, or past the last
+// m16 tile, packs and then stops. The epilogue reduces with the channel's
+// constants (scan_common::recombine), kept in shared memory after the
+// query fragments.
+__global__ void __launch_bounds__(kMaxThreads)
+scan_resident_kernel(const int32_t* __restrict__ db,
+                     const uint32_t* __restrict__ query,
+                     uint32_t* __restrict__ out, const Tiling p, int ncb,
+                     const Epilogue e) {
+  extern __shared__ uint4 qf[];  // [kc][ntp][2][32], then kEpi words
+  const int cb = blockIdx.x % ncb, bxi = blockIdx.x / ncb;
+  const int c = blockIdx.z;
+  const int col0 = cb * p.ntp * 8;
+  const uint32_t q = c ? p.q1 : p.q0;
+  const int JW = p.JW, M = p.M, R = p.R;
+  const size_t cz = static_cast<size_t>(c) * p.Z + blockIdx.y;
+  const uint32_t* qz = query + cz * 4 * JW * R;
+  const int32_t* dz = db + cz * kLimbs * JW * M;
+  uint32_t* oz = out + cz * M * R;
+  const int plane = JW * M;
+  uint32_t* wts = reinterpret_cast<uint32_t*>(qf + p.kc * p.ntp * 64);
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp % p.wm;
+  const int u0 = (warp / p.wm) * kResNtw;  // the warp's first tile
+  const int nit = p.kc / kSteps;             // iterations of an m16 tile
+  // the warp's m16 tiles that hold rows: (bxi * mtw + i) * wm + wm below
+  // ceil(M / 16); none without columns
+  const int mt = (M + 15) / 16;
+  int mine = (mt - wm + p.wm - 1) / p.wm - bxi * p.mtw;
+  mine = col0 + u0 * 8 < R ? max(0, min(p.mtw, mine)) : 0;
+  const int row0 = (bxi * p.mtw * p.wm + wm) * 16 + g;
+
+  auto row_of = [&](int i) { return i < mine ? row0 + i * p.wm * 16 : M; };
+  // the A fragments of the k32 steps of iteration it, rows m and m + 8
+  auto load_a = [&](uint32_t (&a)[kSteps][kLimbs][4], int it, int m) {
+    const bool r0 = m < M, r1 = m + 8 < M;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int j0 = (it * kSteps + s) * kStepWords + t, j1 = j0 + 4;
+      const bool c0 = j0 < JW, c1 = j1 < JW;
+#pragma unroll
+      for (int k = 0; k < kLimbs; ++k) {
+        const int32_t* d = dz + k * plane + m;
+        a[s][k][0] = (c0 && r0) ? d[j0 * M] : 0;
+        a[s][k][1] = (c0 && r1) ? d[j0 * M + 8] : 0;
+        a[s][k][2] = (c1 && r0) ? d[j1 * M] : 0;
+        a[s][k][3] = (c1 && r1) ? d[j1 * M + 8] : 0;
+      }
+    }
+  };
+
+  int32_t acc[kWeights][kResNtw][4];
+#pragma unroll
+  for (int s = 0; s < kWeights; ++s)
+#pragma unroll
+    for (int u = 0; u < kResNtw; ++u)
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) acc[s][u][e4] = 0;
+
+  uint32_t a[kSteps][kLimbs][4];
+  load_a(a, 0, row_of(0));
+  if (threadIdx.x < kEpi) wts[threadIdx.x] = e.w[c][threadIdx.x];
+  fill_query(qf, qz, 0, p.kc, p.ntp, col0, JW, R);
+  __syncthreads();
+
+  int i = 0, it = 0;  // m16 tile, iteration
+  const int steps = mine * nit;
+  for (int step = 0; step < steps; ++step) {
+    int i2 = i, it2 = it + 1;
+    if (it2 == nit) {
+      it2 = 0;
+      ++i2;
+    }
+    uint32_t an[kSteps][kLimbs][4];
+    load_a(an, it2, row_of(i2));
+
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+      for (int u = 0; u < kResNtw; ++u) {
+        const uint4* f = qf + ((it * kSteps + s) * p.ntp + u0 + u) * 64 + lane;
+        const uint4 lo = f[0], hi = f[32];
+        const uint32_t b[kLimbs][2] = {
+            {lo.x, lo.y}, {lo.z, lo.w}, {hi.x, hi.y}, {hi.z, hi.w}};
+#pragma unroll
+        for (int k = 0; k < kLimbs; ++k)
+#pragma unroll
+          for (int l = 0; l < kLimbs; ++l)
+            mma_s8(acc[k + l][u], a[s][k], b[l][0], b[l][1]);
+      }
+    }
+
+    if (it == nit - 1) {
+      const int m = row_of(i);
+#pragma unroll
+      for (int u = 0; u < kResNtw; ++u) {
+        const int col = col0 + (u0 + u) * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m + 8 * h;
+          if (col < R && row < M) {
+            int32_t v0[kWeights], v1[kWeights];
+#pragma unroll
+            for (int s = 0; s < kWeights; ++s) {
+              v0[s] = acc[s][u][2 * h];
+              v1[s] = acc[s][u][2 * h + 1];
+            }
+            *reinterpret_cast<uint2*>(oz + static_cast<size_t>(row) * R +
+                                      col) =
+                make_uint2(scan_common::recombine(v0, wts, q),
+                           scan_common::recombine(v1, wts, q));
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kWeights; ++s)
+#pragma unroll
+        for (int u = 0; u < kResNtw; ++u)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) acc[s][u][e4] = 0;
+    }
+
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int k = 0; k < kLimbs; ++k)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) a[s][k][e4] = an[s][k][e4];
+    i = i2;
+    it = it2;
+  }
+}
+
 template <int NTW>
 int launch(const int32_t* db, const uint32_t* query, uint32_t* out,
            const Tiling& p, int ncb, int cgb, int bx, cudaStream_t st) {
@@ -294,4 +457,36 @@ extern "C" int sdk_scan(const void* db, const void* query, void* out, int Z,
     case 4: return launch<4>(d, qr, o, p, ncb, cgb, bx, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The resident form, same arrays: a block takes cgb column groups of 4
+// 8-column tiles, with their query limbs of all of JW in shared memory,
+// and wm x mtw m16 tiles; the grid is (ncb * bx, Z, 2), ncb * cgb * 32 >=
+// R, bx * wm * mtw * 16 >= M, 32 * wm * cgb <= 256 threads. weights: host
+// uint32 [2][kEpi], per channel 2^{7s} mod q_c for s < 7, then c = 2^32
+// mod q_c, floor(2^32 c / q_c) and floor(2^32 / q_c).
+extern "C" int sdk_scan_resident(const void* db, const void* query,
+                                 void* out, int Z, int M, int JW, int R,
+                                 int ncb, int cgb, int wm, int mtw, int bx,
+                                 unsigned int q0, unsigned int q1,
+                                 const void* weights, void* stream) {
+  if (32 * wm * cgb > kMaxThreads) return cudaErrorInvalidValue;
+  const int nks = (JW + kStepWords - 1) / kStepWords;
+  const int kc = (nks + kSteps - 1) / kSteps * kSteps;
+  const Tiling p{Z, M, JW, R, cgb * kResNtw, wm, mtw, kc, q0, q1};
+  Epilogue e;
+  const auto* wq = static_cast<const uint32_t*>(weights);
+  for (int c = 0; c < 2; ++c)
+    for (int s = 0; s < kEpi; ++s) e.w[c][s] = wq[c * kEpi + s];
+  const size_t smem = sizeof(uint4) * 64 * kc * p.ntp + sizeof(e.w[0]);
+  cudaError_t err = cudaFuncSetAttribute(
+      scan_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(ncb * bx, Z, 2);
+  scan_resident_kernel<<<grid, 32 * wm * cgb, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(db), static_cast<const uint32_t*>(query),
+      static_cast<uint32_t*>(out), p, ncb, e);
+  return static_cast<int>(cudaGetLastError());
 }

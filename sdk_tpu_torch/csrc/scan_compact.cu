@@ -74,15 +74,14 @@
 
 namespace {
 
+using scan_common::kEpi;
 using scan_common::kLimbs;
 using scan_common::kWeights;
+using scan_common::recombine;
 
 constexpr int kThreads = 256;     // 8 warps
 
 constexpr int kDbWords = 4096;    // DB words of a stage (16 KB)
-// Epilogue constants a channel: w[s] = 2^{7s} mod q (s < 7), then
-// c = 2^32 mod q, floor(2^32 c / q) and floor(2^32 / q).
-constexpr int kEpi = kWeights + 3;
 
 // The shape of a stage: SW slot words (2, 4 or 8) of kBs = 64 / SW bins.
 template <int SW>
@@ -145,29 +144,6 @@ __device__ __forceinline__ void cp_async_wait(int ns) {
     asm volatile("cp.async.wait_group 1;\n" ::);
   else
     asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// Shoup: a * w mod q for a < 2^32, w < q < 2^31, wq = floor(w 2^32 / q).
-__device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w,
-                                              uint32_t wq, uint32_t q) {
-  uint32_t r = a * w - __umulhi(a, wq) * q;  // in [0, 2q)
-  return r >= q ? r - q : r;
-}
-
-// sum_s acc[s] * w[s] mod q: the sum in 64 bits (< 7 * 2^31 * 2^28), then
-// its high word times 2^32 mod q and its low word, each by Shoup.
-__device__ __forceinline__ uint32_t recombine(const int32_t (&acc)[kWeights],
-                                              const uint32_t* w, uint32_t q) {
-  uint64_t x = 0;
-#pragma unroll
-  for (int s = 0; s < kWeights; ++s)
-    x += static_cast<uint64_t>(static_cast<uint32_t>(acc[s])) * w[s];
-  const uint32_t hi = mul_shoup(static_cast<uint32_t>(x >> 32), w[kWeights],
-                                w[kWeights + 1], q);
-  const uint32_t lo = mul_shoup(static_cast<uint32_t>(x), 1u, w[kWeights + 2],
-                                q);
-  const uint32_t r = hi + lo;
-  return r >= q ? r - q : r;
 }
 
 // Byte l of w0..w3 -> word l (limb l of four slots).

@@ -287,11 +287,56 @@ class ScanTiling(NamedTuple):
 
 _SCAN_SMEM = 128 * 1024    # query fragments of a block: 1 KB a (step, tile)
 _SCAN_BLOCKS = 1056        # eight blocks an SM of the H100's 132
+_SCAN_RESIDENT_SMEM = 227 * 1024   # the most shared memory an H100 block has
+_SCAN_RESIDENT_NTW = 4     # tiles of a warp in the resident form
+_EPILOGUE_WORDS = 10       # epilogue_constants of a channel
+
+
+class ResidentScanTiling(NamedTuple):
+    """Kernel C's resident form (csrc/scan.cu ``scan_resident_kernel``): a
+    block holds the query limbs of its cgb column groups of 4 8-column
+    tiles over all of JW in shared memory, packed once; ncb blocks span the
+    R columns, neighbours in the grid on one (channel, z) and one range of
+    rows; its wm x cgb warps take mtw m16 tiles each (bx blocks across the
+    M rows)."""
+
+    ncb: int
+    cgb: int
+    wm: int
+    mtw: int
+    bx: int
+
+
+def resident_scan_tiling(R: int, M: int, Z: int, JW: int,
+                         cgb: int | None = None,
+                         wm: int = 4) -> ResidentScanTiling | None:
+    """The resident form's tiling for R columns, M rows, Z z-slices of two
+    channels and JW words of dim0, or None where a block's query limbs of
+    all of JW do not fit in its shared memory. cgb: 2 (64 columns a block)
+    where the R / 8 tiles fill such blocks, else 1 (32 columns a block:
+    fewer idle warps); as many rows a block as keep _SCAN_BLOCKS blocks in
+    flight (at the 1 GiB bucket all 1,024: one packing a (channel, z) and
+    column block)."""
+    nt = -(-R // 8)
+    if cgb is None:
+        cgb = 2 if nt % 8 == 0 else 1
+    if cgb not in (1, 2) or not 1 <= wm <= 8 // cgb:
+        raise ValueError(f"resident scan tiling: cgb {cgb}, wm {wm}")
+    ntp = cgb * _SCAN_RESIDENT_NTW
+    smem = -(-JW // 16) * 2 * ntp * 1024 + 4 * _EPILOGUE_WORDS
+    if smem > _SCAN_RESIDENT_SMEM:
+        return None
+    ncb = -(-nt // ntp)
+    mt = -(-M // 16)
+    bx = max(1, min(-(-mt // wm), -(-_SCAN_BLOCKS // (2 * Z * ncb))))
+    mtw = -(-mt // (wm * bx))
+    bx = -(-mt // (wm * mtw))
+    return ResidentScanTiling(ncb, cgb, wm, mtw, bx)
 
 
 def scan_tiling(R: int, M: int, Z: int, JW: int, ntw: int | None = None,
-                warps: int | None = None,
-                mtw: int | None = None) -> ScanTiling:
+                warps: int | None = None, mtw: int | None = None
+                ) -> ScanTiling | ResidentScanTiling:
     """Kernel C's tiling for R columns, M rows, Z z-slices of two channels
     and JW words of dim0 (defaults from the sweep of
     tools/scan_bench_gpu.py on the H100, PERF.md). ntw (tiles of a warp):
@@ -299,8 +344,13 @@ def scan_tiling(R: int, M: int, Z: int, JW: int, ntw: int | None = None,
     ``warps`` warps (4 at ntw 4, whose 252 registers a thread leave room
     for two such blocks an SM, else 8); a warp of one tile takes one m16
     tile (many short blocks: no wave of blocks is left half full), wider
-    warps take as many m16 tiles as keep enough blocks to fill the card."""
+    warps take as many m16 tiles as keep enough blocks to fill the card.
+    Where that block cannot hold its query limbs of all of JW at once (it
+    would pack them again for every m16 tile: above 64 columns at JW =
+    128) and the resident form can, the resident form's tiling, unless
+    ntw, warps or mtw pick today's form."""
     nt = -(-R // 8)
+    pick = ntw is None and warps is None and mtw is None
     if ntw is None:
         ntw = next(w for w in (4, 2, 1) if nt % w == 0)
     if warps is None:
@@ -313,6 +363,10 @@ def scan_tiling(R: int, M: int, Z: int, JW: int, ntw: int | None = None,
     wm = max(1, warps // cgb)
     nks = -(-JW // 8)
     kc = min(-(-nks // 2), _SCAN_SMEM // (2048 * cgb * ntw)) * 2
+    if pick and kc < -(-nks // 2) * 2:
+        resident = resident_scan_tiling(R, M, Z, JW)
+        if resident is not None:
+            return resident
     mt = -(-M // 16)
     if mtw is None and ntw == 1:
         mtw = 1
@@ -325,7 +379,7 @@ def scan_tiling(R: int, M: int, Z: int, JW: int, ntw: int | None = None,
 
 
 def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor,
-                 tiling: ScanTiling | None = None):
+                 tiling: ScanTiling | ResidentScanTiling | None = None):
     crt, z, L, jw, inst, trials, npr, _ = db.shape
     R = q_arr.shape[-1]
     M = inst * trials * npr
@@ -341,9 +395,16 @@ def _scan_launch(params: Params, db: torch.Tensor, q_arr: torch.Tensor,
     out = torch.empty((crt, z, inst, trials, npr, R), dtype=torch.int32,
                       device=db.device)
     q0, q1 = params.moduli
-    _build.launch("scan", "sdk_scan", db.device, db.data_ptr(),
-                  q_arr.data_ptr(), out.data_ptr(), z, M, jw, R, *tl, q0, q1,
-                  _build.stream_of(db))
+    if isinstance(tl, ResidentScanTiling):
+        _build.launch("scan_resident", "sdk_scan_resident", db.device,
+                      db.data_ptr(), q_arr.data_ptr(), out.data_ptr(), z, M,
+                      jw, R, *tl, q0, q1,
+                      ctypes.addressof(_epilogue_array(q0, q1)),
+                      _build.stream_of(db))
+    else:
+        _build.launch("scan", "sdk_scan", db.device, db.data_ptr(),
+                      q_arr.data_ptr(), out.data_ptr(), z, M, jw, R, *tl, q0,
+                      q1, _build.stream_of(db))
     return out
 
 
@@ -542,14 +603,14 @@ def _scan_compact_launch(params: Params, db: CompactDb, q_arr: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _epilogue_array(q0: int, q1: int):
-    """Both channels' epilogue constants as the uint32 [2][10] the kernel
-    takes (kept alive by the cache)."""
+    """Both channels' epilogue constants as the uint32 [2][10] kernels I
+    and C's resident form take (kept alive by the cache)."""
     return (ctypes.c_uint32 * 20)(*epilogue_constants(q0),
                                   *epilogue_constants(q1))
 
 
 def epilogue_constants(q: int) -> list[int]:
-    """Kernel I's epilogue constants for modulus q: w_s = 2^{7s} mod q for
+    """The scan's epilogue constants for modulus q: w_s = 2^{7s} mod q for
     s < 7, then c = 2^32 mod q and Shoup's floor(2^32 c / q) and
     floor(2^32 / q)."""
     c = (1 << 32) % q

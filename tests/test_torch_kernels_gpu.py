@@ -90,34 +90,55 @@ def test_matmul_mod_matches_plain(cuda, keyed):
 
 
 # (z, instances, trials, num_per, dim0): JW = dim0 / 4 words of dim0, M =
-# instances * trials * num_per rows
+# instances * trials * num_per rows; "wide*" at the 1 GiB bucket's JW = 128
+# (whose query limbs today's form holds in one fill only up to 64 columns),
+# with a JW tail (131 words) and an M tail (40 rows)
 _SCAN_SHAPES = {"base": (64, 1, 4, 64, 64), "jw1": (8, 1, 4, 16, 4),
                 "jw2": (8, 1, 4, 16, 8), "jw3": (8, 1, 4, 16, 12),
-                "m8": (8, 1, 1, 8, 64)}
+                "m8": (8, 1, 1, 8, 64), "wide": (4, 1, 4, 16, 512),
+                "wide_jw": (4, 1, 4, 16, 524), "wide_m": (4, 1, 5, 8, 512)}
 
 
-@pytest.mark.parametrize("R", [2, 6, 8, 32, 34, 64])
-@pytest.mark.parametrize("shape", list(_SCAN_SHAPES))
-def test_scan_matches_plain(cuda, shape, R):
-    """Kernel C (int8 tensor-core MMA): the base shape and the tails, JW
-    not a multiple of 8 words (a k32 step) and M not a multiple of 16."""
-    z, inst, trials, npr, dim0 = _SCAN_SHAPES[shape]
-    rng = np.random.default_rng(3)
+def _scan_case(rng, z, inst, trials, npr, dim0, R):
     vals = np.stack([rng.integers(0, q, (z, inst, trials, npr, dim0))
                      for q in PARAMS.moduli])
     db = sj.db_limbs(PARAMS, torch.from_numpy(vals))
     q_arr = torch.from_numpy(np.stack(
         [rng.integers(0, q, (z, dim0, R)) for q in PARAMS.moduli]
     ).astype(np.int32))
+    return db, q_arr
+
+
+@pytest.mark.parametrize("R", [2, 6, 8, 32, 34, 64, 96, 128, 256])
+@pytest.mark.parametrize("shape", list(_SCAN_SHAPES))
+def test_scan_matches_plain(cuda, shape, R):
+    """Kernel C (int8 tensor-core MMA): the base shape and the tails, JW
+    not a multiple of 8 words (a k32 step) and M not a multiple of 16, in
+    the form scan_tiling picks: the resident form where today's would pack
+    the query limbs again for every m16 tile (above 64 columns at JW >=
+    128)."""
+    z, inst, trials, npr, dim0 = _SCAN_SHAPES[shape]
+    db, q_arr = _scan_case(np.random.default_rng(3), z, inst, trials, npr,
+                           dim0, R)
+    tl = sj.scan_tiling(R, inst * trials * npr, z, dim0 // 4)
+    name = ("scan_resident" if isinstance(tl, sj.ResidentScanTiling)
+            else "scan")
+    if shape.startswith("wide") and R > 64:
+        assert name == "scan_resident"
+    if not shape.startswith("wide"):
+        assert name == "scan"
+    before = dict(_build.LAUNCHES)
     got = sj.firstdim_multiply(PARAMS, db.to(cuda), q_arr.to(cuda)).cpu()
+    assert _build.LAUNCHES[name] == before[name] + 1
     assert torch.equal(got, sj.firstdim_multiply_plain(PARAMS, db, q_arr))
 
 
-@pytest.mark.parametrize("R", [2, 32])
+@pytest.mark.parametrize("R", [2, 32, 128])
 def test_scan_weight_group_bound(cuda, R):
     """dim0 = 2^15 with every limb of both operands 127: the weight group
     s = 3 sums 4 * 127^2 * 2^15 = 2,114,060,288 < 2^31 in int32, and the
-    query limbs span more k32 steps than shared memory holds at once."""
+    query limbs span more k32 steps than shared memory holds at once (at R =
+    128 too: no block holds them all, so today's form refills them)."""
     dim0 = 1 << 15
     full = (1 << 28) - 1              # four limbs of 127
     vals = np.full((2, 2, 1, 1, 16, dim0), full, dtype=np.int64)
@@ -126,6 +147,34 @@ def test_scan_weight_group_bound(cuda, R):
     q_arr = torch.full((2, 2, dim0, R), full, dtype=torch.int32)
     got = sj.firstdim_multiply(PARAMS, db.to(cuda), q_arr.to(cuda)).cpu()
     assert torch.equal(got, sj.firstdim_multiply_plain(PARAMS, db, q_arr))
+
+
+def test_scan_resident_widest_jw_all_limbs_127(cuda):
+    """The resident form at the widest JW a block of 64 columns holds (224
+    words: 224 KB of query limbs in shared memory), R = 128, every limb
+    127."""
+    dim0 = 4 * 224
+    full = (1 << 28) - 1
+    vals = np.full((2, 2, 1, 1, 40, dim0), full, dtype=np.int64)
+    db = sj.db_limbs(PARAMS, torch.from_numpy(vals))
+    q_arr = torch.full((2, 2, dim0, 128), full, dtype=torch.int32)
+    assert isinstance(sj.scan_tiling(128, 40, 2, 224), sj.ResidentScanTiling)
+    got = sj.firstdim_multiply(PARAMS, db.to(cuda), q_arr.to(cuda)).cpu()
+    assert torch.equal(got, sj.firstdim_multiply_plain(PARAMS, db, q_arr))
+
+
+@pytest.mark.parametrize("cgb,wm", [(1, 1), (1, 4), (1, 8), (2, 2), (2, 4)])
+def test_scan_resident_tilings_match_plain(cuda, cgb, wm):
+    """Warp layouts of the resident form at R = 136 (17 tiles: a last
+    column block with one) over JW = 131 words (a tail of 3 in the last
+    k32 step) and 40 rows (3 m16 tiles), as tiled and with one block along
+    m (at wm 1 and 2 its warps take their m16 tiles one after another)."""
+    db, q_arr = _scan_case(np.random.default_rng(6), 4, 1, 5, 8, 524, 136)
+    want = sj.firstdim_multiply_plain(PARAMS, db, q_arr)
+    base = sj.resident_scan_tiling(136, 40, 4, 131, cgb=cgb, wm=wm)
+    for tl in (base, base._replace(bx=1, mtw=-(-3 // wm))):
+        got = sj._scan_launch(PARAMS, db.to(cuda), q_arr.to(cuda), tl).cpu()
+        assert torch.equal(got, want), tl
 
 
 @pytest.mark.parametrize("ntw", [1, 2, 4])

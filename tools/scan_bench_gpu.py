@@ -26,7 +26,10 @@ beside the scan's: over the S1 index at 32 columns it writes 8x fewer). ``--root
 one call time two checkouts in turn, each in its own process (parent,
 change, change, parent). ``--sweep`` also times every tiling that
 ``scan_tiling`` or ``compact_scan_tiling`` offers (a checkout that has
-one).
+one), and above 64 columns each warp layout of C's resident form
+(``resident_scan_tiling``). Each whole-index row names the form and
+tiling that ``scan_tiling`` picks, and the line ends with the launches by
+kernel.
 
 ``--kernel ntt`` times A and A' on (count, 2, 2048) residues at 24 and
 6,144 polynomials (the expansion's rounds r = 1 and 9 before kernel E),
@@ -1122,10 +1125,20 @@ def main() -> int:
                "GBps": index_bytes / ms / 1e6}
         for cols in (8, 32):
             row[f"int_mm_ms_{cols}"] = int_mm_ms(torch, db, cols, args.iters)
+        if hasattr(sj, "scan_tiling"):
+            tl = sj.scan_tiling(R, M, z, jw)
+            row["tiling"] = {"form": type(tl).__name__, **tl._asdict()}
+        if args.sweep and hasattr(sj, "resident_scan_tiling") and R > 64:
+            row["resident_sweep_ms"] = {
+                f"cgb{cgb}_wm{wm}": cuda_ms(lambda: sj._scan_launch(
+                    params, db, q_arr, sj.resident_scan_tiling(
+                        R, M, z, jw, cgb=cgb, wm=wm)), args.iters)
+                for cgb, wm in ((1, 4), (1, 8), (2, 2), (2, 4))}
         if args.sweep and hasattr(sj, "scan_tiling"):
             sweep = {}
-            default = sj.scan_tiling(R, M, z, jw)
-            for ntw in sorted({default.ntw, 2 if R >= 16 else 1}):
+            # today's form (the resident one has no ntw: 4 tiles a warp)
+            default = getattr(sj.scan_tiling(R, M, z, jw), "ntw", 4)
+            for ntw in sorted({default, 2 if R >= 16 else 1}):
                 for warps in (4, 8):
                     for mtw in (1, 2, 4, 16):
                         tl = sj.scan_tiling(R, M, z, jw, ntw=ntw, warps=warps,
@@ -1135,11 +1148,11 @@ def main() -> int:
                             lambda: sj._scan_launch(
                                 params, db, q_arr, tl), args.iters)
             row["sweep_ms"] = sweep
-            row["tiling"] = sj.scan_tiling(R, M, z, jw)._asdict()
         out[f"R{R}"] = row
         del q_arr, got, want
     if hasattr(_build, "ptxas_usage"):
         out["ptxas"] = _build.ptxas_usage("scan")
+    out["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
     print(json.dumps(out))
     return 0
 
