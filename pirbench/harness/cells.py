@@ -9,7 +9,11 @@ own under pirbench/:
                                metrics/<quantity>.py
 
 A later cell, mix or per-layer metric is a new file and new entries in
-BENCHMARK.json; no file that is there changes.
+BENCHMARK.json; no file that is there changes. That holds for a partial
+fill too: a configuration's ``fill`` names how many rows are written and
+where (``rows``, ``at``) and the layout they must leave (``expect``), and a
+mix's ``rows`` may draw from the written rows alone (harness/service.py
+written_rows, harness/traffic.py).
 """
 
 from __future__ import annotations

@@ -3,11 +3,14 @@ own runs plant none: pirbench/control.py and the tests use them to show
 that ``correct`` comes out false.
 
     low_limb      the control: the index's lowest 7-bit limb dropped after
-                  the fill, so the scan reads 21 of the residues' 28 bits
-                  (the cut a faster scan would be tempted by); breaks the
-                  configuration's exact answers
-    stale_write   every other row's write is acknowledged and dropped: the
-                  index keeps its state (zeros) for those rows
+                  the fill, in the dense tensor or in the compact index's
+                  planes, so the scan (C or I) reads 21 of the residues' 28
+                  bits (the cut a faster scan would be tempted by); breaks
+                  the configuration's exact answers
+    stale_write   every other row's write is acknowledged and its bytes
+                  dropped: the index keeps its state (zeros) for those
+                  rows, while the bucket counts them written, so the fill
+                  leaves the layout it leaves without the fault
     half_batch    each dispatch computes the first half of its queries
                   only and answers the rest with copies of those answers
     altered       one bit of each batch's first answer flipped where the
@@ -31,7 +34,10 @@ class Fault:
 
 class LowLimb(Fault):
     def after_fill(self, srv) -> None:
-        srv.engine.db[:, :, 0].zero_()
+        db = srv.engine.db
+        if srv.meta()["index_layout"] == "compact":
+            db = db.planes
+        db[:, :, 0].zero_()
 
 
 class StaleWrite(Fault):
@@ -39,8 +45,7 @@ class StaleWrite(Fault):
         inner = srv.update_item_raw
 
         def update_item_raw(db_idx, data):
-            if db_idx % 2 == 0:
-                inner(db_idx, data)
+            inner(db_idx, data if db_idx % 2 == 0 else bytes(len(data)))
         srv.update_item_raw = update_item_raw
 
 

@@ -1,6 +1,7 @@
 """The service under test, in the run's own process: the port's bucket
-(``SpiralKvServerTorch``) filled through its write path, warmed on the
-cell's batch shapes, behind the port's HTTP service.
+(``SpiralKvServerTorch``) filled through its write path with the rows the
+configuration names, held to the layout it expects, warmed on the cell's
+batch shapes, behind the port's HTTP service.
 
 This is the only module of the benchmark that imports the program.
 """
@@ -19,9 +20,13 @@ from sdk_tpu_torch.server.http import serve
 from sdk_tpu_torch.server.kv_server import SpiralKvServerTorch
 
 from ..reference.client import Client
+from ..reference.key_value import row_from_key
 from ..reference.params import params_from_json_obj as reference_params
 from ..reference.rng import ChaCha20Rng
 from .traffic import Traffic, derive_seed
+
+# the layout a fill must leave where the configuration states none
+EXPECT_DEFAULT = {"index_layout": "dense", "sparse_expansion": False}
 
 
 def row_bytes(params_obj: dict) -> int:
@@ -29,29 +34,71 @@ def row_bytes(params_obj: dict) -> int:
     return p.instances * p.n * p.n * p.bytes_per_chunk()
 
 
-def fill(srv, params_obj: dict, seed: int, device, flush_every: int,
-         keep: set[int]) -> dict:
-    """Write every row, made from the seed on the device in chunks of
-    ``flush_every`` rows, through ``update_item_raw`` and a ``flush`` a
-    chunk (the device ingest). Returns the host bytes of the rows in
-    ``keep`` and the layout after each flush."""
-    n_items = 1 << (int(params_obj["nu_1"]) + int(params_obj["nu_2"]))
+def n_items(params_obj: dict) -> int:
+    return 1 << (int(params_obj["nu_1"]) + int(params_obj["nu_2"]))
+
+
+def written_rows(cfg: dict, params_obj: dict, seed: int) -> list[int]:
+    """The rows the configuration's fill writes, in the order it writes them.
+
+    Without ``fill.at``: every row, in order. With ``fill.at`` "key_hash":
+    the keys "<seed>:0", "<seed>:1", ... placed on their rows by the SDK's
+    key hash (pirbench/reference/key_value.py), the first ``fill.rows``
+    distinct rows, as a bucket holds the keys its users wrote.
+    ``fill.rows`` counts rows of the configuration's own params; at other
+    params (--cpu-tiny) the fill keeps its share of the rows."""
+    fill = cfg["fill"]
+    total = n_items(params_obj)
+    want = int(fill["rows"]) * total // n_items(cfg["params"])
+    at = fill.get("at")
+    if at is None:
+        if want != total:
+            raise ValueError(f"fill.rows {fill['rows']} of "
+                             f"{n_items(cfg['params'])} needs fill.at")
+        return list(range(total))
+    if at != "key_hash":
+        raise ValueError(f"fill.at {at!r}: the one placement is 'key_hash'")
+    if not 0 < want <= total:
+        raise ValueError(f"fill.rows {fill['rows']}: 1 to "
+                         f"{n_items(cfg['params'])}")
+    rows, seen, i = [], set(), 0
+    while len(rows) < want:
+        row = row_from_key(total, f"{seed}:{i}")
+        if row not in seen:
+            seen.add(row)
+            rows.append(row)
+        i += 1
+    return rows
+
+
+def fill(srv, params_obj: dict, rows: list[int], seed: int, device,
+         flush_every: int, keep: set[int]) -> dict:
+    """Write ``rows`` (written_rows), their bytes made from the seed on the
+    device in chunks of ``flush_every`` rows, through ``update_item_raw``
+    and a ``flush`` a chunk (the device ingest). Returns the host bytes of
+    the rows in ``keep``, the layout after each flush, and the index's
+    device bytes and compact capacity (``cap_bin``, None when dense)."""
     width = row_bytes(params_obj)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kept, layouts = {}, []
-    for start in range(0, n_items, flush_every):
-        count = min(flush_every, n_items - start)
-        chunk = torch.randint(0, 256, (count, width), dtype=torch.uint8,
+    for start in range(0, len(rows), flush_every):
+        part = rows[start:start + flush_every]
+        chunk = torch.randint(0, 256, (len(part), width), dtype=torch.uint8,
                               device=device, generator=gen).cpu().numpy()
-        for i in range(count):
-            data = chunk[i].tobytes()
-            srv.update_item_raw(start + i, data)
-            if start + i in keep:
-                kept[start + i] = data
+        for row, data in zip(part, chunk):
+            data = data.tobytes()
+            srv.update_item_raw(row, data)
+            if row in keep:
+                kept[row] = data
         srv.flush()
         layouts.append(srv.meta()["index_layout"])
-    return {"rows": kept, "layouts": layouts}
+    db = srv.engine.db
+    compact = layouts[-1] == "compact"
+    index = db.planes if compact else db
+    return {"rows": kept, "layouts": layouts,
+            "index_bytes": index.numel() * index.element_size(),
+            "cap_bin": db.cap_bin if compact else None}
 
 
 def warm(srv, params_obj: dict, seed: int, batch_sizes: list[int]) -> None:
@@ -172,20 +219,23 @@ class DispatchSpans:
             return [list(r) for r in self.records]
 
 
-def start(cfg: dict, params_obj: dict, device, seed: int, keep: set[int],
-          sizes: list[int], fault=None):
-    """Build, fill and warm the bucket and start its HTTP service on a free
-    port. Returns (bucket, http server, port, kept rows, fill log)."""
+def start(cfg: dict, params_obj: dict, device, seed: int, rows: list[int],
+          keep: set[int], sizes: list[int], fault=None):
+    """Build the bucket, fill ``rows`` (written_rows), hold its layout to
+    the configuration's ``fill.expect`` (without it: dense, no sparse
+    expansion), warm it and start its HTTP service on a free port. Returns
+    (bucket, http server, port, kept rows, fill log)."""
     srv = SpiralKvServerTorch(params_from_json_obj(params_obj), device=device)
     if fault is not None:
         fault.before_fill(srv)
-    filled = fill(srv, params_obj, seed, device, cfg["fill"]["flush_every"],
-                  keep)
+    filled = fill(srv, params_obj, rows, seed, device,
+                  cfg["fill"]["flush_every"], keep)
     meta = srv.meta()
-    if meta["index_layout"] != "dense" or meta["sparse_expansion"]:
-        raise RuntimeError(f"bucket after the fill: {meta['index_layout']}, "
-                           f"sparse expansion {meta['sparse_expansion']}; "
-                           f"want dense, none")
+    want = cfg["fill"].get("expect", EXPECT_DEFAULT)
+    got = {k: meta[k] for k in EXPECT_DEFAULT}
+    if got != want:
+        raise RuntimeError(f"bucket after the fill: {got}; the configuration "
+                           f"expects {want}")
     if fault is not None:
         fault.after_fill(srv)
     warm(srv, params_obj, seed, sizes)

@@ -13,7 +13,9 @@ A traffic file (``pirbench/traffic/<mix>.json``) holds:
     processes         load processes the clients are spread over
     keys_per_request  distinct rows a /private-read request asks for
     think_ms          closed loop: pause between a response and the next send
-    rows              "uniform": every row equally likely
+    rows              "uniform": every row of the bucket equally likely;
+                      "written": every row the configuration's fill
+                      writes equally likely (service.written_rows)
     pool_per_client   pregenerated requests a client replays in turn
     ramp_s            load before the measured window starts (set-up)
     rate_per_s        open loop only: the offered requests per second
@@ -28,12 +30,13 @@ from __future__ import annotations
 
 import hashlib
 import json
+from collections.abc import Sequence
 from dataclasses import dataclass, fields
 
 import numpy as np
 
 LOOPS = ("closed", "open")
-ROWS = ("uniform",)
+ROWS = ("uniform", "written")
 
 
 @dataclass(frozen=True)
@@ -77,16 +80,21 @@ def derive_seed(seed: int, *parts) -> bytes:
     return hashlib.sha256(text.encode()).digest()
 
 
-def plan(traffic: Traffic, seed: int, num_items: int) -> list[list[dict]]:
+def plan(traffic: Traffic, seed: int,
+         rows: Sequence[int]) -> list[list[dict]]:
     """Per load process, its clients: ``{"client": c, "pool": [[row, ...],
-    ...]}``. Clients are dealt round-robin over the processes."""
-    if traffic.keys_per_request > num_items:
-        raise ValueError("more keys a request than rows in the bucket")
+    ...]}``, each request's distinct rows drawn uniformly from ``rows``:
+    every row of the bucket (``range``) for "uniform", the written rows for
+    "written". Clients are dealt round-robin over the processes."""
+    if traffic.keys_per_request > len(rows):
+        raise ValueError(f"{traffic.keys_per_request} keys a request, "
+                         f"{len(rows)} rows to draw from")
+    pop = np.asarray(rows)
     gen = np.random.default_rng([seed, 0x726F7773])
     procs: list[list[dict]] = [[] for _ in range(traffic.processes)]
     for c in range(traffic.clients):
         pool = [sorted(int(r) for r in gen.choice(
-                    num_items, traffic.keys_per_request, replace=False))
+                    pop, traffic.keys_per_request, replace=False))
                 for _ in range(traffic.pool_per_client)]
         procs[c % traffic.processes].append({"client": c, "pool": pool})
     return procs

@@ -12,16 +12,19 @@ BENCHMARK.json (pirbench/harness/cells.py). One run, in one process:
 2. spawns the traffic's load processes (pirbench/harness/load.py), which
    make their clients' keys and queries with the frozen NumPy client
    meanwhile;
-3. sets up the port's bucket, SpiralKvServerTorch on the card, fills every
-   row from the seed through update_item_raw + flush, asserts the dense
-   index without the sparse expansion, warms the cell's batch shapes and
-   starts sdk_tpu_torch.server.http.serve with the configuration's
-   coalescing window; the load processes set up their sessions over HTTP
-   and load the service for the traffic's ramp;
+3. sets up the port's bucket, SpiralKvServerTorch on the card, writes the
+   rows the configuration's fill names (every row, or ``fill.rows`` at
+   their keys' hashes: harness/service.py written_rows) from the seed
+   through update_item_raw + flush, holds the layout to the configuration's
+   ``fill.expect`` (without it: the dense index, no sparse expansion),
+   warms the cell's batch shapes and starts sdk_tpu_torch.server.http.serve
+   with the configuration's coalescing window; the load processes set up
+   their sessions over HTTP and load the service for the traffic's ramp;
 4. measures the window of --seconds: every /private-read request completed
    in it, from its send to its whole response;
 5. has every answer of the run judged after the window: decoded with its
-   client's secret key, it must give the bytes written at its row;
+   client's secret key, it must give the bytes written at its row (zeros
+   at a row the fill did not write);
 6. prints, as the last line of standard output, the result: ``correct``,
    ``attempted``, ``failed``, ``metrics``, ``device``, ``breakdown``
    (traced runs) and last ``checks``, each number compared beside its
@@ -197,8 +200,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                           keys_per_request=min(traffic.keys_per_request, 2),
                           rate_per_s=min(traffic.rate_per_s, 1.0))
     window_ms = float(cell.config["batch_window_ms"])
-    n_items = 1 << (int(params["nu_1"]) + int(params["nu_2"]))
-    procs_plan = plan(traffic, seed, n_items)
+    written = service.written_rows(cell.config, params, seed)
+    procs_plan = plan(traffic, seed, written if traffic.rows == "written"
+                      else range(service.n_items(params)))
     keep = {r for clients in procs_plan for c in clients
             for req in c["pool"] for r in req}
 
@@ -217,18 +221,23 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             workers.append((p, parent))
         t = time.monotonic()
         srv, httpd, port, filled = service.start(
-            cell.config, params, dev, seed, keep,
+            cell.config, params, dev, seed, written, keep,
             service.batch_sizes(traffic, window_ms), fault)
-        log(f"bucket filled and warmed in {time.monotonic() - t:.2f} s, "
-            f"layouts after each flush {filled['layouts']}, serving on port "
-            f"{port} with a {window_ms} ms window")
+        log(f"bucket filled ({len(written)} rows) and warmed in "
+            f"{time.monotonic() - t:.2f} s, layouts after each flush "
+            f"{filled['layouts']}, index {filled['index_bytes']} bytes, "
+            f"cap_bin {filled['cap_bin']}, serving on port {port} with a "
+            f"{window_ms} ms window")
         spans = service.DispatchSpans(srv.engine) if trace else None
         if trace:
             warm_profiler(torch)
         expect(workers, "keyed")
+        # a row the fill did not write reads back as zeros
+        blank = bytes(service.row_bytes(params))
         for (p, conn), clients in zip(workers, procs_plan):
-            conn.send(("serve", port, {r: filled["rows"][r] for c in clients
-                                       for req in c["pool"] for r in req}))
+            conn.send(("serve", port, {r: filled["rows"].get(r, blank)
+                                       for c in clients for req in c["pool"]
+                                       for r in req}))
         expect(workers, "ready")
         t_start = time.monotonic() + START_LEAD_S
         t0 = t_start + traffic.ramp_s
