@@ -117,6 +117,10 @@ class SpiralServerTorch:
             device=self.device)
         self.encode_plan = ResponseEncodePlan(params, self.device)
         self.db: torch.Tensor | sj.CompactDb | None = None
+        # the rows the installed index holds, as its owner counts them on
+        # the host: set_db counts every row of a dense index and none of a
+        # compact one; the bucket sets it at each flush (the rows written)
+        self.index_rows = 0
         self._splan: sj.SparseExpansionPlan | None = None
         # resolved stage events, recorded again by later dispatches
         self._free_events: list = []
@@ -137,8 +141,7 @@ class SpiralServerTorch:
                 raise ValueError("sharded serving runs the dense index only")
             else:
                 self.db = self._sharded.shard_db(db)
-            return
-        if isinstance(db, sj.CompactDb):
+        elif isinstance(db, sj.CompactDb):
             cap = db.cap_bin
             if (tuple(db.planes.shape) != sj.compact_shape(params, cap)
                     or db.planes.dtype != torch.int8
@@ -147,10 +150,12 @@ class SpiralServerTorch:
                                  f"{tuple(db.planes.shape)}")
             self.db = sj.CompactDb(db.planes.to(self.device),
                                    db.idx_j.to(self.device))
-            return
-        if tuple(db.shape) != sj.db_shape(params) or db.dtype != torch.int8:
-            raise ValueError(f"bad DB tensor {db.dtype} {tuple(db.shape)}")
-        self.db = db.to(self.device)
+        else:
+            if tuple(db.shape) != sj.db_shape(params) or db.dtype != torch.int8:
+                raise ValueError(f"bad DB tensor {db.dtype} {tuple(db.shape)}")
+            self.db = db.to(self.device)
+        self.index_rows = (0 if isinstance(db, sj.CompactDb)
+                           else params.num_items())
 
     def set_db_host_tensor(self, db_host: np.ndarray) -> None:
         if self._sharded is not None:
@@ -401,7 +406,9 @@ class SpiralServerTorch:
         the session dicts meanwhile.
 
         Traced (telemetry): the enqueue is the span ``engine.dispatch``
-        (count: the batch's queries; its trace id is the dispatch's), the
+        (count: the batch's queries; its trace id is the dispatch's), with
+        a zero-length record ``engine.index`` inside it whose count is the
+        rows the scanned index holds (``index_rows``, kept on the host), the
         fetch's copy ``engine.fetch`` and the bytes ``engine.to_bytes``. On
         a card the stage events are resolved after the copy has returned,
         when they are complete, so resolving them waits for nothing: one
@@ -413,6 +420,9 @@ class SpiralServerTorch:
         n_real = len(requests)
         marks = [] if self.device.type == "cuda" else None
         with GLOBAL_TIMERS.span("engine.dispatch", n_real) as span:
+            t = time.monotonic_ns()
+            GLOBAL_TIMERS.add("engine.index", t, t, span.span, span.trace,
+                              self.index_rows)
             pps = [self._pp_dev(pp) for pp, _ in requests]
             words = self._dispatch(pps, [q for _, q in requests], marks)
             held = _tensors(pps)

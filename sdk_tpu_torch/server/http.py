@@ -7,7 +7,8 @@ Routes:
     GET  /metrics       stages: count, total, mean and last us of each span
                         of the served path (sdk_tpu_torch.telemetry);
                         read_coalescer: batches, requests, max_batch;
-                        version, num_rows_populated
+                        version, num_rows_populated; index_bytes (the
+                        index's device bytes) and cap_bin (compact only)
     POST /setup         store client public params, return {"uuid": ...}
     POST /write         JSON {key: base64 value | null}
     POST /update-row    raw row chunks (u32 len BE | u32 idx BE | bytes)*

@@ -219,8 +219,10 @@ class SpiralKvServerTorch:
     def _flush(self) -> None:
         """kv_server.py:225-265, step for step: decide the migration on the
         populated count (pending rows included) before the pending rows are
-        written, write them, then resolve the sparse-expansion set. Traced
-        as the span ``bucket.flush`` (count: the pending rows)."""
+        written, write them, then resolve the sparse-expansion set. The
+        engine's ``index_rows`` becomes the rows written (the populated
+        items), whichever layout holds them. Traced as the span
+        ``bucket.flush`` (count: the pending rows)."""
         with GLOBAL_TIMERS.span("bucket.flush",
                                 len(self._updates.pending_raw)):
             params = self.params
@@ -244,6 +246,7 @@ class SpiralKvServerTorch:
                         params, self.engine.db, self._updates.slots.bin_count))
                     self._updates.slots.clear()
             self.engine.db = self._updates.flush(self.engine.db)
+            self.engine.index_rows = len(self._populated_items)
             if self._pop_dirty:
                 dim0 = 1 << params.db_dim_1
                 dim0_set = {i >> params.db_dim_2
@@ -425,8 +428,17 @@ class SpiralKvServerTorch:
         }
 
     def metrics(self) -> dict:
+        """Span totals, the version, the rows holding key-value data, and
+        the index's device bytes and compact capacity (``cap_bin``, None
+        when dense)."""
+        db = self.engine.db
+        compact = isinstance(db, CompactDb)
         return {"stages": GLOBAL_TIMERS.snapshot(), "version": self.version,
-                "num_rows_populated": sum(1 for r in self.rows if r)}
+                "num_rows_populated": sum(1 for r in self.rows if r),
+                "index_bytes": (db.planes.numel() if compact
+                                else 0 if db is None
+                                else index_hbm_bytes(self.params)),
+                "cap_bin": db.cap_bin if compact else None}
 
     # --- checkpoint / restore of the preprocessed encrypted index ---
     # (reference: load_preprocessed_db_from_file, db/loading.rs:263-276)

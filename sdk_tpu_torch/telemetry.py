@@ -31,8 +31,10 @@ request from its body read to its response written);
 follower's wait, in the dispatch's trace), ``coalescer.batch`` (the
 leader's work on the batch after the window); ``bucket.lock_wait``,
 ``bucket.flush``, ``bucket.parse`` (server/kv_server.py);
-``engine.dispatch`` (the host enqueue), ``engine.fetch`` (the blocking copy
-of the words), ``engine.to_bytes`` (ops/server.py); and on a card
+``engine.dispatch`` (the host enqueue) with ``engine.index`` inside it (a
+zero-length record; count: the rows the scanned index holds),
+``engine.fetch`` (the blocking copy of the words), ``engine.to_bytes``
+(ops/server.py); and on a card
 ``device.expand``, ``device.scan``, ``device.fold`` (``device.scan_fold``
 on a mesh), ``device.pack``. The tracer starts no thread and writes no
 file; a span costs a few microseconds of host time.
@@ -144,7 +146,8 @@ class StageTimers:
     def add(self, name: str, t0_ns: int, t1_ns: int, parent: int = 0,
             trace: int = 0, count: int = 0) -> None:
         """Record a finished interval that was not a span of this thread
-        (a device stage: see SpanRecord)."""
+        (a device stage: see SpanRecord), or a zero-length one that carries
+        a count (``engine.index``)."""
         self._record((name, t0_ns, t1_ns, threading.get_ident(),
                       next(self._ids), parent, trace, count))
 

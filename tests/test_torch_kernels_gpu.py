@@ -226,15 +226,27 @@ def _compact_on(db, cuda):
     return sj.CompactDb(db.planes.to(cuda), db.idx_j.to(cuda))
 
 
-@pytest.mark.parametrize("R", [2, 6, 32, 34])
-@pytest.mark.parametrize("cap", [8, 16, 128])
-@pytest.mark.parametrize("rows", [4, 16, 24])
-def test_scan_compact_matches_plain(cuda, rows, cap, R):
+# (rows a bin, cap, R, bins, dim0, z): every pairing of the first three
+# over 12 bins of dim0 256, named as before, then a z-slice of the
+# eighth-filled 1 GiB bucket's index (16 rows, 64 bins of cap 128, dim0
+# 512) at a 48- and a 64-query dispatch's columns (three and four column
+# blocks of 32)
+COMPACT_CASES = [(rows, cap, R, 12, 256, 16) for rows in (4, 16, 24)
+                 for cap in (8, 16, 128) for R in (2, 6, 32, 34)] + [
+    (16, 128, 96, 64, 512, 4), (16, 128, 128, 64, 512, 4)]
+
+
+@pytest.mark.parametrize(
+    "rows,cap,R,npr,dim0,z", COMPACT_CASES,
+    ids=[f"{r}-{c}-{R}" + ("" if n == 12 else f"-{n}bins")
+         for r, c, R, n, _, _ in COMPACT_CASES])
+def test_scan_compact_matches_plain(cuda, rows, cap, R, npr, dim0, z):
     """Kernel I: rows a bin 4, 16 (one m16 tile) and 24 (two, the second
     half empty), caps below one k32 step and of four, R from one read to
-    past one column block, 12 bins (a partial group of 8)."""
+    past one column block, 12 bins (a partial group of 8); and the cell's
+    shape at R = 96 and 128."""
     rng = np.random.default_rng(6 + rows + cap + R)
-    db, q_arr = _compact_case(rng, rows, 12, cap, 256, R)
+    db, q_arr = _compact_case(rng, rows, npr, cap, dim0, R, z=z)
     got = sj.firstdim_multiply(PARAMS, _compact_on(db, cuda),
                                q_arr.to(cuda)).cpu()
     assert torch.equal(got, sj.firstdim_multiply_compact_plain(PARAMS, db,

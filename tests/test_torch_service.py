@@ -12,6 +12,7 @@ Everything else runs on the port alone.
 import base64
 import bz2
 import json
+import math
 
 import numpy as np
 import pytest
@@ -24,7 +25,8 @@ from sdk_tpu_torch import convert
 from sdk_tpu_torch.client import Client, reframe_decoded_row
 from sdk_tpu_torch.clients.bloom import BloomFilter
 from sdk_tpu_torch.kv.key_value import extract_result, row_from_key
-from sdk_tpu_torch.ops.spiral import CompactDb
+from sdk_tpu_torch.ops.server import index_hbm_bytes
+from sdk_tpu_torch.ops.spiral import CompactDb, compact_shape
 from sdk_tpu_torch.params import (get_fast_expansion_testing_params,
                                   params_to_json_obj)
 from sdk_tpu_torch.rng import ChaCha20Rng
@@ -84,6 +86,11 @@ def test_clear_returns_to_fresh_compact_index():
     blob = blob_for(client, uid, "key-7", 0x20)
     assert decode(client, "key-7", srv.private_read_one(blob)) == values["key-7"]
     assert srv.meta()["index_layout"] == "dense"
+    m = srv.metrics()
+    assert m["index_bytes"] == index_hbm_bytes(FAST) and m["cap_bin"] is None
+    # the rows the index holds: the distinct rows written, in either layout
+    rows = {row_from_key(FAST.num_items(), k) for k in values}
+    assert srv.engine.index_rows == len(rows) < FAST.num_items()
     v0 = srv.version
     srv.clear()
     meta = srv.meta()
@@ -93,7 +100,7 @@ def test_clear_returns_to_fresh_compact_index():
     assert not srv.engine.db.planes.any() and not srv._populated_items
     assert srv.has_uuid(uid)                       # sessions survive a clear
     assert decode(client, "key-7", srv.private_read_one(blob)) is None
-    assert srv.metrics()["num_rows_populated"] == 0
+    assert srv.metrics()["num_rows_populated"] == srv.engine.index_rows == 0
     # the bucket takes writes again, from slot 0
     srv.write_kv(kv_body({"key-7": b"again"}))
     assert decode(client, "key-7", srv.private_read_one(blob)) == b"again"
@@ -109,6 +116,9 @@ def test_rename_destroy_and_metrics():
     m = srv.metrics()
     assert m["version"] == 1 and m["num_rows_populated"] == 3
     assert isinstance(m["stages"], dict)
+    # the compact index's device bytes and capacity
+    assert m["cap_bin"] == 8
+    assert m["index_bytes"] == math.prod(compact_shape(FAST, 8))
     srv.destroy()
     assert srv.destroyed and not srv.has_uuid(uid)
     assert srv.metrics()["num_rows_populated"] == 0
@@ -163,6 +173,7 @@ def test_save_restore_answers_with_the_same_bytes(tmp_path, layout):
     srv2.restore_from_dir(ckpt)
     srv2.setup_raw(pp, "1" * 36)
     assert srv2.private_read_blobs(blobs) == before
+    assert srv2.engine.index_rows == srv.engine.index_rows
     assert srv2.private_read_one(blobs[0]) == before[0]
     meta = srv2.meta()
     assert meta["index_layout"] == layout

@@ -96,6 +96,11 @@ def test_two_coalesced_requests_make_one_traced_dispatch():
     for a, b in zip(order, order[1:]):
         assert inside[a].t1_ns <= inside[b].t0_ns, (a, b)
     assert not [r for r in recs if r.name.startswith("device.")]
+    # the rows the scanned index holds, a zero-length record in the enqueue
+    [index] = [r for r in recs if r.name == "engine.index"]
+    assert (index.parent, index.trace, index.count) == (disp.span,
+                                                        disp.trace, 1)
+    assert disp.t0_ns <= index.t0_ns == index.t1_ns <= disp.t1_ns
 
     assert SERVED <= set(metrics["stages"])
     assert "query_fused" not in metrics["stages"]
